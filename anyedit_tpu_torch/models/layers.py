@@ -23,6 +23,7 @@ from torch import nn
 
 from anyedit_tpu_torch.ops.attention import attention as attention_op
 from anyedit_tpu_torch.ops.groupnorm import group_norm
+from anyedit_tpu_torch.ops.quant import QuantConv, make_dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +46,15 @@ def default_processor(q, k, v, meta: AttnMeta, extra=None):
     return attention_op(q, k, v)
 
 
+def int8_processor(q, k, v, meta: AttnMeta, extra=None):
+    """W8A8 fast-mode attention. `attention(int8=True)` takes the same route
+    as the default (as in the JAX package, where the int8 flash kernel
+    measured slower at the SD shapes), so int8 in this mode means int8
+    convs and projections only."""
+    del meta, extra
+    return attention_op(q, k, v, int8=True)
+
+
 class MultiHeadAttention(nn.Module):
     """Projection wrapper around the processor slot (diffusers naming:
     to_q, to_k, to_v, to_out.0)."""
@@ -52,18 +62,20 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, query_dim: int, num_heads: int, head_dim: int,
                  out_dim: int, name_tag: str, is_self: bool,
                  context_dim: int | None = None, qkv_bias: bool = False,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, quant: bool = False):
         super().__init__()
         kv_dim = query_dim if context_dim is None else context_dim
         self.meta = AttnMeta(name_tag, is_self, num_heads, head_dim)
+        self.quant = quant
         self._build(query_dim, kv_dim, num_heads * head_dim, out_dim, qkv_bias,
                     dict(dtype=dtype, device=device))
 
     def _build(self, query_dim, kv_dim, inner, out_dim, qkv_bias, kw):
-        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias, **kw)
-        self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias, **kw)
-        self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias, **kw)
-        self.to_out = nn.ModuleList([nn.Linear(inner, out_dim, **kw)])
+        kw = dict(kw, quant=self.quant)
+        self.to_q = make_dense(query_dim, inner, bias=qkv_bias, **kw)
+        self.to_k = make_dense(kv_dim, inner, bias=qkv_bias, **kw)
+        self.to_v = make_dense(kv_dim, inner, bias=qkv_bias, **kw)
+        self.to_out = nn.ModuleList([make_dense(inner, out_dim, **kw)])
 
     def projections(self):
         """(q, k, v, out) projection modules."""
@@ -82,7 +94,8 @@ class MultiHeadAttention(nn.Module):
         q = split(to_q(x), lq)
         k = split(to_k(context), lkv)
         v = split(to_v(context), lkv)
-        out = (processor or default_processor)(q, k, v, self.meta, extra)
+        proc = processor or (int8_processor if self.quant else default_processor)
+        out = proc(q, k, v, self.meta, extra)
         return to_out(out.permute(0, 2, 1, 3).reshape(b, lq, h * d))
 
 
@@ -137,8 +150,12 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
 
 
 def Conv3x3(in_channels: int, out_channels: int, stride: int = 1,
-            dtype=torch.bfloat16, device=None) -> nn.Conv2d:
-    """3x3 conv with symmetric padding 1 (the JAX Conv3x3)."""
+            dtype=torch.bfloat16, device=None, quant: bool = False) -> nn.Module:
+    """3x3 conv with symmetric padding 1 (the JAX Conv3x3); `quant` gives
+    its W8A8 drop-in under the same parameter names."""
+    if quant:
+        return QuantConv(in_channels, out_channels, 3, stride=stride, padding=1,
+                         dtype=dtype, device=device)
     return nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=1,
                      dtype=dtype, device=device)
 
@@ -152,9 +169,11 @@ class GEGLU(nn.Module):
     """Gated GELU. The JAX package calls `jax.nn.gelu`, whose default is the
     tanh approximation, so this uses it too (diffusers uses exact GELU)."""
 
-    def __init__(self, dim: int, dim_out: int, dtype=torch.bfloat16, device=None):
+    def __init__(self, dim: int, dim_out: int, dtype=torch.bfloat16, device=None,
+                 quant: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, dim_out * 2, dtype=dtype, device=device)
+        self.proj = make_dense(dim, dim_out * 2, quant=quant, dtype=dtype,
+                               device=device)
 
     def forward(self, x):
         a, g = self.proj(x).chunk(2, dim=-1)
@@ -193,12 +212,12 @@ class FeedForward(nn.Module):
     parameter-free dropout slot)."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, quant: bool = False):
         super().__init__()
         self.net = nn.ModuleList([
-            GEGLU(dim, dim * mult, dtype=dtype, device=device),
+            GEGLU(dim, dim * mult, dtype=dtype, device=device, quant=quant),
             nn.Identity(),
-            nn.Linear(dim * mult, dim, dtype=dtype, device=device),
+            make_dense(dim * mult, dim, quant=quant, dtype=dtype, device=device),
         ])
 
     def forward(self, x):

@@ -17,9 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from anyedit_tpu_torch.models.layers import (
-    AttnProcessor, Conv1x1, Conv3x3, FeedForward, GroupNorm, LayerNorm,
+    AttnProcessor, Conv3x3, FeedForward, GroupNorm, LayerNorm,
     MultiHeadAttention, Sampler, Stage, timestep_embedding, upsample2x,
 )
+from anyedit_tpu_torch.ops.quant import make_conv1x1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,11 @@ class UNetConfig:
     time_embed_mult: int = 4
     num_groups: int = 32
     dtype: Any = torch.bfloat16
+    # W8A8 int8 fast mode (ops/quant.py): the ResBlock convs and skip 1x1s,
+    # the transformer projections, FFNs and proj_in/out, and the down/up
+    # sampler convs; conv_in, conv_out and the time embeddings stay float.
+    # Convert a float state dict with ops.quant.quantize_state_dict.
+    quant: bool = False
 
     def heads(self, channels: int) -> int:
         if self.num_heads:
@@ -62,13 +68,14 @@ class ResBlock(nn.Module):
                  cfg: UNetConfig, device=None):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
+        qkw = dict(kw, quant=cfg.quant)
         g = cfg.num_groups
         self.norm1 = GroupNorm(in_channels, g, silu=True, device=device)
-        self.conv1 = Conv3x3(in_channels, out_channels, **kw)
+        self.conv1 = Conv3x3(in_channels, out_channels, **qkw)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels, **kw)
         self.norm2 = GroupNorm(out_channels, g, silu=True, device=device)
-        self.conv2 = Conv3x3(out_channels, out_channels, **kw)
-        self.conv_shortcut = (Conv1x1(in_channels, out_channels, **kw)
+        self.conv2 = Conv3x3(out_channels, out_channels, **qkw)
+        self.conv_shortcut = (make_conv1x1(in_channels, out_channels, **qkw)
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb):
@@ -85,16 +92,17 @@ class TransformerBlock(nn.Module):
                  cfg: UNetConfig, device=None):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
+        qkw = dict(kw, quant=cfg.quant)
         hd = channels // heads
         self.norm1 = LayerNorm(channels, **kw)
         self.attn1 = MultiHeadAttention(channels, heads, hd, channels,
-                                        f"{name_tag}.self", True, **kw)
+                                        f"{name_tag}.self", True, **qkw)
         self.norm2 = LayerNorm(channels, **kw)
         self.attn2 = MultiHeadAttention(channels, heads, hd, channels,
                                         f"{name_tag}.cross", False,
-                                        context_dim=cfg.context_dim, **kw)
+                                        context_dim=cfg.context_dim, **qkw)
         self.norm3 = LayerNorm(channels, **kw)
-        self.ff = FeedForward(channels, **kw)
+        self.ff = FeedForward(channels, **qkw)
 
     def forward(self, x, context, processor=None, extra=None):
         x = x + self.attn1(self.norm1(x), None, processor, extra)
@@ -106,14 +114,14 @@ class SpatialTransformer(nn.Module):
     def __init__(self, channels: int, name_tag: str, depth: int,
                  cfg: UNetConfig, device=None):
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=cfg.dtype, device=device, quant=cfg.quant)
         self.norm = GroupNorm(channels, cfg.num_groups, device=device)
-        self.proj_in = Conv1x1(channels, channels, **kw)
+        self.proj_in = make_conv1x1(channels, channels, **kw)
         self.transformer_blocks = nn.ModuleList([
             TransformerBlock(channels, cfg.heads(channels), f"{name_tag}.tb{d}",
                              cfg, device=device)
             for d in range(depth)])
-        self.proj_out = Conv1x1(channels, channels, **kw)
+        self.proj_out = make_conv1x1(channels, channels, **kw)
 
     def forward(self, x, context, processor=None, extra=None):
         b, c, hh, ww = x.shape
@@ -144,6 +152,7 @@ class UNet2DCondition(nn.Module):
         self.cfg = cfg
         c = cfg
         kw = dict(dtype=c.dtype, device=device)
+        qkw = dict(kw, quant=c.quant)
         ch0 = c.block_channels[0]
         temb_dim = ch0 * c.time_embed_mult
         n_levels = len(c.block_channels)
@@ -168,7 +177,7 @@ class UNet2DCondition(nn.Module):
                 skip_ch.append(ch)
             samplers = []
             if lvl != n_levels - 1:
-                samplers.append(Sampler(Conv3x3(ch, ch, stride=2, **kw)))
+                samplers.append(Sampler(Conv3x3(ch, ch, stride=2, **qkw)))
                 skip_ch.append(ch)
             down.append(Stage(resnets, attns, downsamplers=samplers))
         self.down_blocks = nn.ModuleList(down)
@@ -187,7 +196,7 @@ class UNet2DCondition(nn.Module):
                 cur = ch
                 if c.attn_levels[lvl]:
                     attns.append(tf(ch, f"up_{lvl}.tf_{i}", lvl))
-            samplers = [Sampler(Conv3x3(ch, ch, **kw))] if lvl != 0 else []
+            samplers = [Sampler(Conv3x3(ch, ch, **qkw))] if lvl != 0 else []
             up.append(Stage(resnets, attns, upsamplers=samplers))
         self.up_blocks = nn.ModuleList(up)   # diffusers order: lowest res first
 

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc at first use and bind them with ctypes.
 
-Every `csrc/*.cu` file is compiled into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library lands
-in `anyedit_tpu_torch/_build/`, named by a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is reused. Nothing here runs
-at import: `library()` builds and loads on its first call.
+Every `csrc/*.cu` file is compiled on its own (one nvcc per source, all
+started together) and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in `anyedit_tpu_torch/_build/`, named by a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import: `library()` builds and loads on its first call.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +31,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "anyedit_flash_nomax_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "anyedit_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "anyedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "anyedit_flash_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -59,12 +62,30 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs, failed = [], []
+    for src, proc in zip(sources, procs):
+        out = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr}")
+    lib.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 

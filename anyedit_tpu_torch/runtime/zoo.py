@@ -6,8 +6,10 @@ steps, s_txt, s_img, seed)`: lanczos resize to the canvas -> VAE encode ->
 CLIP text for the instruction and for "" -> 3-way-CFG DDIM loop on the IP2P
 UNet -> VAE decode -> lanczos resize back to the input size. Parameters come
 from Flax trees through `weights/bridge.py` (`params=`), or from a seeded
-init on the device. The JAX zoo's fused/stepwise compile split and its LCM
-branch have no counterpart here: the port runs one Python denoise loop.
+init on the device. With `quant_ip2p` (or `quant_diffusion`) the float
+UNet parameters are quantized once at slot build into the W8A8 UNet, as the
+JAX zoo does. The JAX zoo's fused/stepwise compile split and its LCM branch
+have no counterpart here: the port runs one Python denoise loop.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from anyedit_tpu_torch.models.unet_sd import (
     SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
 from anyedit_tpu_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
+from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, normalize_to_unit, resize_image, to_u8,
 )
@@ -42,6 +45,13 @@ class ZooConfig:
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     vae: VAEConfig = SD_VAE
     text: CLIPTextConfig = CLIP_L_TEXT
+    # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
+    # parameters are quantized per output channel at slot build. Opt-in;
+    # bf16 is the parity default. `quant_diffusion` also covers the other
+    # pure-sampling UNet slots in the JAX zoo; of those the port has only
+    # the IP2P slot so far.
+    quant_ip2p: bool = False
+    quant_diffusion: bool = False
 
 
 def tiny_zoo_config() -> ZooConfig:
@@ -123,14 +133,34 @@ class ModelZoo:
             AutoencoderKL(vcfg, device=self.device), "vae",
             lambda t: bridge.vae_state_dict(t, len(vcfg.block_channels))))
 
+    def _quantize_unet(self, ucfg: UNetConfig, slot: str) -> UNet2DCondition:
+        """The W8A8 UNet from the slot's float parameters: bridged from
+        `params`, or the seeded init drawn on the device in fp32 (the float
+        values the JAX package quantizes). Quantized once, here."""
+        if slot in self.params:
+            float_sd = bridge.unet_state_dict(self.params[slot],
+                                              len(ucfg.block_channels))
+        else:
+            fcfg = dataclasses.replace(ucfg, dtype=torch.float32)
+            float_sd = seeded_init_(UNet2DCondition(fcfg, device=self.device),
+                                    self.seed).state_dict()
+        unet = UNet2DCondition(dataclasses.replace(ucfg, quant=True),
+                               device=self.device)
+        unet.load_state_dict(quantize_state_dict(unet, float_sd), strict=True)
+        return unet.eval().requires_grad_(False)
+
     def _ip2p_core(self):
         """(unet, noise_schedule)."""
-        ucfg = self.cfg.ip2p_unet
+        c = self.cfg
+        ucfg = c.ip2p_unet
 
         def build():
-            unet = self._load(UNet2DCondition(ucfg, device=self.device), "unet_ip2p",
-                              lambda t: bridge.unet_state_dict(
-                                  t, len(ucfg.block_channels)))
+            if c.quant_ip2p or c.quant_diffusion:
+                unet = self._quantize_unet(ucfg, "unet_ip2p")
+            else:
+                unet = self._load(UNet2DCondition(ucfg, device=self.device),
+                                  "unet_ip2p", lambda t: bridge.unet_state_dict(
+                                      t, len(ucfg.block_channels)))
             return unet, make_noise_schedule(device=self.device)
         return self._get("ip2p_core", build)
 

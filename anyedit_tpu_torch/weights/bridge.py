@@ -11,7 +11,11 @@ cannot be imported without JAX.
 
 Input trees are nested dicts of numpy arrays (what `load_params` returns);
 output state dicts hold fp32 CPU tensors, which `load_state_dict` casts
-into each parameter's dtype and device.
+into each parameter's dtype and device. The W8A8 leaves of a
+`quantize_params` tree travel too: `kernel_q` stays int8 under the float
+kernel's key (`.weight`, same layout transform), and `kernel_scale` keeps
+its name (`.kernel_scale`). `unet_tree` carries a port state dict back
+into a Flax tree of a given structure, so quant trees round-trip.
 """
 
 from __future__ import annotations
@@ -29,6 +33,17 @@ _INVERSE: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _LINEAR: lambda w: np.transpose(w),                  # (in, out) -> (out, in)
     _ID: lambda w: w,
 }
+_FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
+    _CONV: lambda w: np.transpose(w, (2, 3, 1, 0)),     # OIHW -> HWIO
+    _LINEAR: lambda w: np.transpose(w),
+    _ID: lambda w: w,
+}
+
+
+def _keep_dtype(leaf) -> np.ndarray:
+    """int8 leaves (W8A8 kernels) stay int8; everything else becomes fp32."""
+    a = np.asarray(leaf)
+    return a if a.dtype == np.int8 else a.astype(np.float32)
 
 
 def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
@@ -45,15 +60,35 @@ def _bridge(tree: Mapping[str, Any], key_fn) -> dict[str, torch.Tensor]:
         key, tf = key_fn(path)
         if key in out:
             raise KeyError(f"two Flax leaves map to {key!r}")
-        w = _INVERSE[tf](np.asarray(leaf, dtype=np.float32))
+        w = _INVERSE[tf](_keep_dtype(leaf))
         out[key] = torch.from_numpy(np.ascontiguousarray(w))
     return out
 
 
+def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
+             prefix: tuple[str, ...] = ()) -> dict[str, Any]:
+    """The inverse of `_bridge`: a tree shaped like `like`, each leaf read
+    from `sd` under the bridge's key, in the Flax layout and sd's dtype."""
+    out: dict[str, Any] = {}
+    for k, v in like.items():
+        path = prefix + (k,)
+        if isinstance(v, Mapping):
+            out[k] = _to_tree(v, sd, key_fn, path)
+            continue
+        key, tf = key_fn(path)
+        w = _FORWARD[tf](sd[key].detach().cpu().numpy())
+        if w.shape != tuple(v.shape):
+            raise KeyError(f"{key}: shape {w.shape} vs the tree's {tuple(v.shape)}")
+        out[k] = np.ascontiguousarray(w)
+    return out
+
+
 def _kinds(leaf: str):
-    suff = {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
-    conv = lambda k: (f"{k}.{suff}", _CONV if leaf == "kernel" else _ID)
-    lin = lambda k: (f"{k}.{suff}", _LINEAR if leaf == "kernel" else _ID)
+    suff = {"kernel": "weight", "kernel_q": "weight", "scale": "weight",
+            "bias": "bias", "kernel_scale": "kernel_scale"}[leaf]
+    kernel = leaf in ("kernel", "kernel_q")
+    conv = lambda k: (f"{k}.{suff}", _CONV if kernel else _ID)
+    lin = lambda k: (f"{k}.{suff}", _LINEAR if kernel else _ID)
     norm = lambda k: (f"{k}.{suff}", _ID)
     return conv, lin, norm
 
@@ -121,8 +156,16 @@ def _unet_key(path: tuple[str, ...], n_levels: int) -> tuple[str, str]:
 
 
 def unet_state_dict(tree: Mapping[str, Any], n_levels: int = 4):
-    """Flax `UNet2DCondition` params -> the port's `UNet2DCondition` state dict."""
+    """Flax `UNet2DCondition` params (float or W8A8) -> the port's
+    `UNet2DCondition` state dict."""
     return _bridge(tree, lambda p: _unet_key(p, n_levels))
+
+
+def unet_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
+              n_levels: int = 4) -> dict[str, Any]:
+    """The port's UNet state dict -> a Flax tree of `like`'s structure
+    (numpy leaves; int8 kernels stay int8)."""
+    return _to_tree(like, sd, lambda p: _unet_key(p, n_levels))
 
 
 # ---- VAE (convert.py `_vae_key`) --------------------------------------------

@@ -1,20 +1,35 @@
-"""Drive the PyTorch port's IP2P editor slot once on one NVIDIA GPU.
+"""Drive the PyTorch port's IP2P editor slot on one NVIDIA GPU, through every
+path that runs a hand kernel.
 
     python3 chip_smoke.py
 
 Phases, each printing its own line with the seconds it took:
-  1. the card: CUDA must be available; prints nvidia-smi's name and power
-     limit;
-  2. build: compiles anyedit_tpu_torch/csrc/*.cu with nvcc for sm_90a;
-  3. kernels: K1 (flash_nomax) and K2 (GroupNorm+SiLU) against their plain
-     PyTorch versions at the main path's shapes, in bf16, TF32 off;
-  4. reference: the slice at the tiny config in bf16 on the card against
+  1. card: CUDA must be available; prints nvidia-smi's name and power limit;
+  2. build: compiles anyedit_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
+     nvcc per source, in parallel);
+  3. kernels: K1 (flash_nomax), K2 (GroupNorm+SiLU), K3 (fp32 online-softmax
+     flash) and K4 (int8 flash) against their plain PyTorch versions at the
+     paths' shapes, TF32 off; K4 also against fp32 sdpa;
+  4. int8: the W8A8 int32 contraction (int8 im2col + torch._int_mm) equals
+     a float64 contraction bit for bit, for a full-width conv and dense;
+  5. reference: the slice at the tiny config in bf16 on the card against
      the same slice in fp32 on the CPU (plain versions), same weights and
      noise, bounded by the CPU's own bf16 error;
-  5. slice: the full-width SD1.5-IP2P + SD-VAE + CLIP-L editor (seeded
+  6. slice: the full-width SD1.5-IP2P + SD-VAE + CLIP-L editor (seeded
      random weights drawn on the card) serves two 100-step edit requests
      through `ModelZoo.ip2p()`; K1 must launch exactly 10 times per UNet
-     call and K2 at least once.
+     call and K2 at least once;
+  7. k3 path: one 20-step edit through `ip2p_edit` on the same UNet with a
+     processor that sends all 32 attention sites to `attention(...,
+     use_flash=True)`; K3 must launch exactly 32 times per UNet call; one
+     UNet call through K3 against the default route;
+  8. w8a8 slice: `ModelZoo(ZooConfig(quant_ip2p=True))` serves the two
+     requests at 100 steps; K1 10 per UNet call, K2 at least once; one W8A8
+     UNet call against the bf16 one (cosine > 0.95);
+  9. k4 path: one W8A8 UNet call at batch 3 with a processor that sends the
+     level-0/1 self-attention sites to `self_attn_int8`; K4 must launch
+     exactly 10 times; cosine > 0.95 against `int8_processor`.
+Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
 """
@@ -31,8 +46,26 @@ import numpy as np
 STEPS = 100             # edits/global_.py color_alter / tone_transfer knobs
 S_TXT, S_IMG = 8.0, 0.9
 K1_PER_UNET_CALL = 10   # 5 self-attention sites at 64x64 latents, 5 at 32x32
+K3_PER_UNET_CALL = 32   # 16 transformer blocks x (self + cross)
+K3_STEPS = 20
+K4_PER_UNET_CALL = 10   # the K1 sites, through self_attn_int8
 REQUESTS = [((512, 512), "make the sky a deep orange"),
             ((480, 640), "turn it into a winter scene")]
+# K3 shapes at batch 3 x 8 heads: self-attention (Lq = Lkv) and
+# cross-attention over 77 text tokens, at head dims 40/80/160
+K3_SHAPES = [(24, 4096, 4096, 40), (24, 1024, 1024, 80), (24, 256, 256, 160),
+             (24, 64, 64, 160), (24, 4096, 77, 40), (24, 1024, 77, 80),
+             (24, 256, 77, 160), (24, 64, 77, 160)]
+# K4 against fp32 sdpa: the JAX package's bound is 0.03 at (2, 1024, 128) in
+# fp32 (tests/test_quant.py:207). At 4096 keys the /127 probability grid
+# errs more: the JAX kernel itself measures 0.0356 there on the CPU (its
+# interpret mode, (1, 4096, 40)), so that length is held to 0.04.
+K4_SDPA_BOUND = {4096: 0.04}
+# One UNet call through K3 (fp32 attention) against the default route (K1
+# and sdpa round q and the probabilities to bf16): relative L2 of the
+# noise prediction, a few bf16 roundings (2^-8 each) grown through 16
+# transformer blocks.
+K3_VS_DEFAULT_REL_L2 = 0.05
 
 
 @contextlib.contextmanager
@@ -88,7 +121,50 @@ def check_kernels(dev):
               f"({r['gbps']:.0f} GB/s) plain {r['plain_ms']:.4f} ms", flush=True)
         require(r["finite"] and r["max_abs_err"] <= 5e-2 and r["mean_abs_err"] <= 2e-3,
                 f"K2 {shape} agrees with its plain version")
-    return k1, k2
+
+    # K3: bf16 within one bf16 rounding of the output (plus 1e-5 for fp32
+    # order near zero); fp32 within 2e-5 (tests/test_ops.py:26)
+    k3 = [(str(s), kc.check_flash_attention(*s, dev, iters=5)) for s in K3_SHAPES]
+    k3.append(("(6, 300, 77, 40) fp32",
+               kc.check_flash_attention(6, 300, 77, 40, dev, dtype=torch.float32)))
+    for shape, r in k3:
+        print(f"K3 flash_attention {shape}: max {r['max_abs_err']:.3e} "
+              f"({r['bf16_ulps']:.2f} bf16 roundings) | kernel {r['ms']:.4f} ms "
+              f"({r['tflops']:.2f} TFLOP/s) plain {r['plain_ms']:.4f} ms", flush=True)
+        ok = r["max_abs_err"] <= 2e-5 if "fp32" in shape else r["bf16_ulps"] <= 1.0
+        require(r["finite"] and ok, f"K3 {shape} agrees with its plain version")
+
+    # K4: against its plain version (same quantization and 64-key tiles:
+    # fp32 order only), and against fp32 sdpa
+    k4 = [(str(s), kc.check_flash_int8(*s, dev)) for s in ((24, 4096, 40), (24, 1024, 80))]
+    k4.append(("(2, 1024, 128) fp32",
+               kc.check_flash_int8(2, 1024, 128, dev, dtype=torch.float32)))
+    for shape, r in k4:
+        bound = K4_SDPA_BOUND.get(int(shape.split(",")[1]), 0.03)
+        print(f"K4 flash_int8 {shape}: max {r['max_abs_err']:.3e} mean "
+              f"{r['mean_abs_err']:.3e}, rel-L2 to fp32 sdpa {r['rel_l2_sdpa']:.4f} "
+              f"(bound {bound}) | kernel {r['ms']:.4f} ms ({r['tops']:.2f} TOP/s) "
+              f"plain {r['plain_ms']:.4f} ms", flush=True)
+        require(r["finite"] and r["mean_abs_err"] <= 1e-4 and r["max_abs_err"] <= 3e-2,
+                f"K4 {shape} agrees with its plain version")
+        require(r["rel_l2_sdpa"] < bound, f"K4 {shape} within {bound} of fp32 sdpa")
+    return k1, k2, k3, k4
+
+
+def check_int8(dev):
+    from anyedit_tpu_torch.ops import kernel_check as kc
+
+    rows = []
+    for kind, label in (("conv", "3x3 conv (3, 320, 64, 64) -> 320"),
+                        ("dense", "dense (4096, 320) -> 2560")):
+        r = kc.check_int8_contraction(kind, dev)
+        print(f"int8 {label}: exact {r['exact']} | int8 {r['ms']:.4f} ms "
+              f"({r['tops']:.1f} TOP/s) float64 {r['plain_ms']:.4f} ms "
+              f"bf16 {r['bf16_ms']:.4f} ms", flush=True)
+        require(r["exact"] and r["dtype"] == "torch.int32",
+                f"the int8 {kind} contraction equals float64 bit for bit")
+        rows.append((kind, r))
+    return rows
 
 
 def check_reference(dev):
@@ -133,21 +209,39 @@ def check_reference(dev):
             "the card's bf16 slice is within twice the CPU's bf16 error")
 
 
-def serve_slice(dev):
+def cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def unet_inputs(zoo, dev, batch: int = 3, seed: int = 5):
+    """Seeded (latents NHWC, t, context) for one full-width UNet call."""
+    import torch
+    c = zoo.cfg
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, hw, hw, c.ip2p_unet.in_channels, generator=g, device=dev)
+    t = torch.full((batch,), 501, device=dev)
+    ctx = torch.randn(batch, 77, c.ip2p_unet.context_dim, generator=g, device=dev)
+    return x, t, ctx
+
+
+def serve_slice(dev, zoo, label: str):
+    """Two full-width 100-step requests through `zoo.ip2p()`: K1 exactly 10
+    launches per UNet call, K2 at least one, uint8 outputs of the input's
+    shape, finite final latents. Returns (launches, seconds, step_ms)."""
     import torch
     from anyedit_tpu_torch.ops.attention import flash_nomax
     from anyedit_tpu_torch.ops.groupnorm import group_norm
     from anyedit_tpu_torch.ops.kernel_check import time_ms
-    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
 
     t0 = time.perf_counter()
-    zoo = ModelZoo(ZooConfig(), dev, seed=0)
     edit = zoo.ip2p()
     torch.cuda.synchronize()
-    print(f"full-width zoo (SD15_IP2P_UNET, SD_VAE, CLIP_L_TEXT, 512 canvas) "
+    print(f"{label} zoo (SD15_IP2P_UNET, SD_VAE, CLIP_L_TEXT, 512 canvas) "
           f"built on the card in {time.perf_counter() - t0:.2f} s", flush=True)
     latents = []
-    zoo._vae().post_quant_conv.register_forward_pre_hook(
+    hook = zoo._vae().post_quant_conv.register_forward_pre_hook(
         lambda mod, args: latents.append(args[0].detach()))
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, hw + (3,), np.uint8) for hw, _ in REQUESTS]
@@ -162,30 +256,123 @@ def serve_slice(dev):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         require(out.shape == img.shape and out.dtype == np.uint8,
-                f"output of {img.shape} is {out.shape} {out.dtype}")
+                f"{label}: output of {img.shape} is {out.shape} {out.dtype}")
     launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    hook.remove()
 
     require(len(latents) == len(REQUESTS) and
             all(bool(torch.isfinite(z.float()).all()) for z in latents),
-            "final latents are finite")
+            f"{label}: final latents are finite")
     want = len(REQUESTS) * STEPS * K1_PER_UNET_CALL
     require(launches["flash_nomax"] == want,
-            f"K1 launched {launches['flash_nomax']} times, want {want}")
-    require(launches["group_norm"] > 0, "K2 launched on the main path")
+            f"{label}: K1 launched {launches['flash_nomax']} times, want {want}")
+    require(launches["group_norm"] > 0, f"{label}: K2 launched on the main path")
 
     unet, _ = zoo._ip2p_core()
-    c = zoo.cfg
-    hw = c.canvas.edit_size // c.canvas.latent_down
-    x = torch.randn(3, hw, hw, c.ip2p_unet.in_channels, device=dev)
-    t = torch.full((3,), 501, device=dev)
-    ctx = torch.randn(3, 77, c.ip2p_unet.context_dim, device=dev)
+    x, t, ctx = unet_inputs(zoo, dev)
     with torch.inference_mode():
         step_ms = time_ms(lambda: unet(x, t, ctx), iters=10)
     for (hw, _), s in zip(REQUESTS, seconds):
-        print(f"request {hw[0]}x{hw[1]}: {s:.3f} s for {STEPS} steps", flush=True)
-    print(f"UNet call at batch 3 (one 3-way-CFG step): {step_ms:.3f} ms", flush=True)
-    print(f"launches on the main path: {launches}", flush=True)
+        print(f"{label} request {hw[0]}x{hw[1]}: {s:.3f} s for {STEPS} steps", flush=True)
+    print(f"{label} UNet call at batch 3 (one 3-way-CFG step): {step_ms:.3f} ms", flush=True)
+    print(f"{label} launches on the path: {launches}", flush=True)
     return launches, seconds, step_ms
+
+
+def flash_processor(q, k, v, meta, extra=None):
+    """An AttnProcessor that sends every site to K3, as a user of the
+    processor slot would write it."""
+    from anyedit_tpu_torch.ops.attention import attention
+    return attention(q, k, v, use_flash=True)
+
+
+def int8_flash_processor(q, k, v, meta, extra=None):
+    """An AttnProcessor for the W8A8 UNet that sends the level-0/1
+    self-attention sites (64x64 and 32x32 latents) to the int8 kernel K4 and
+    every other site to `int8_processor`."""
+    from anyedit_tpu_torch.models.layers import int8_processor
+    from anyedit_tpu_torch.ops.attention import self_attn_int8
+    if meta.is_self and meta.name.split(".")[0] in ("down_0", "down_1", "up_0", "up_1"):
+        return self_attn_int8(q, k, v)
+    return int8_processor(q, k, v, meta, extra)
+
+
+def k3_path(dev, zoo):
+    """One 20-step 3-way-CFG edit through `ip2p_edit` on the full-width bf16
+    UNet with every attention site on K3; then one UNet call through K3
+    against the default route. Returns (launches, seconds, step_ms, rel_l2)."""
+    import torch
+    from anyedit_tpu_torch.diffusion import ip2p_edit
+    from anyedit_tpu_torch.ops.attention import flash_attention
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.ops.resize import normalize_to_unit
+
+    unet, ns = zoo._ip2p_core()
+    vae, text = zoo._vae(), zoo._text_encoder()
+    c = zoo.cfg
+    size = c.canvas.edit_size
+    img = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (size, size, 3), np.uint8)).to(dev).float()
+    g = torch.Generator(device=dev).manual_seed(7)
+    with torch.inference_mode():
+        lat_in = vae.encode(normalize_to_unit(img)[None].to(torch.bfloat16))[0] \
+            * c.vae.scaling_factor
+        cond = text(REQUESTS[0][1]).to(torch.bfloat16)
+        uncond = text("").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        lat = ip2p_edit(lambda x, t, ctx: unet(x, t, ctx, processor=flash_processor),
+                        ns, lat_in, cond, uncond, num_steps=K3_STEPS,
+                        guidance_scale=S_TXT, image_guidance_scale=S_IMG, generator=g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = flash_attention.launches
+    require(bool(torch.isfinite(lat).all()), "K3 path: final latents are finite")
+    want = K3_STEPS * K3_PER_UNET_CALL
+    require(launches == want, f"K3 launched {launches} times, want {want}")
+
+    x, t, ctx = unet_inputs(zoo, dev)
+    with torch.inference_mode():
+        ref = unet(x, t, ctx)
+        out = unet(x, t, ctx, processor=flash_processor)
+        step_ms = time_ms(lambda: unet(x, t, ctx, processor=flash_processor), iters=5)
+    rel = float((out - ref).norm() / ref.norm())
+    print(f"K3 path: {K3_STEPS}-step edit in {seconds:.3f} s, {launches} K3 launches; "
+          f"UNet call through K3 {step_ms:.3f} ms; rel-L2 to the default route "
+          f"{rel:.4f} (bound {K3_VS_DEFAULT_REL_L2}), cosine {cosine(out, ref):.5f}",
+          flush=True)
+    require(bool(torch.isfinite(out).all()) and rel <= K3_VS_DEFAULT_REL_L2,
+            "one UNet call through K3 agrees with the default route")
+    return launches, seconds, step_ms, rel
+
+
+def k4_path(dev, qzoo):
+    """One W8A8 UNet call at batch 3 with the level-0/1 self-attention on K4,
+    against the same call with `int8_processor`. Returns (launches, cos, ms)."""
+    import torch
+    from anyedit_tpu_torch.ops.attention import flash_int8
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    qunet, _ = qzoo._ip2p_core()
+    x, t, ctx = unet_inputs(qzoo, dev)
+    with torch.inference_mode():
+        ref = qunet(x, t, ctx)
+        torch.cuda.synchronize()
+        flash_int8.launches = 0
+        out = qunet(x, t, ctx, processor=int8_flash_processor)
+        torch.cuda.synchronize()
+        launches = flash_int8.launches
+        step_ms = time_ms(lambda: qunet(x, t, ctx, processor=int8_flash_processor),
+                          iters=5)
+    cos = cosine(out, ref)
+    print(f"K4 path: {launches} K4 launches in one W8A8 UNet call "
+          f"({step_ms:.3f} ms); cosine to int8_processor {cos:.5f}", flush=True)
+    require(launches == K4_PER_UNET_CALL,
+            f"K4 launched {launches} times, want {K4_PER_UNET_CALL}")
+    require(bool(torch.isfinite(out).all()) and cos > 0.95,
+            "the K4 UNet call agrees with int8_processor (cosine > 0.95)")
+    return launches, cos, step_ms
 
 
 def main() -> int:
@@ -214,30 +401,55 @@ def main() -> int:
                 print(line.strip(), flush=True)
 
     with phase("kernels"):
-        k1, k2 = check_kernels(dev)
+        k1, k2, k3, k4 = check_kernels(dev)
+
+    with phase("int8"):
+        check_int8(dev)
 
     with phase("reference"):
         check_reference(dev)
 
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+    zoo = ModelZoo(ZooConfig(), dev, seed=0)
     with phase("slice"):
-        launches, seconds, step_ms = serve_slice(dev)
+        launches, seconds, step_ms = serve_slice(dev, zoo, "bf16")
         print(f"{card_line}: {np.mean(seconds):.3f} s per request, "
               f"{step_ms:.3f} ms per UNet step", flush=True)
 
+    with phase("k3 path"):
+        k3_launches, _, _, _ = k3_path(dev, zoo)
+
+    qzoo = ModelZoo(ZooConfig(quant_ip2p=True), dev, seed=0)
+    with phase("w8a8 slice"):
+        q_launches, q_seconds, q_step_ms = serve_slice(dev, qzoo, "W8A8")
+        x, t, ctx = unet_inputs(zoo, dev)
+        with torch.inference_mode():
+            cos = cosine(qzoo._ip2p_core()[0](x, t, ctx), zoo._ip2p_core()[0](x, t, ctx))
+        print(f"{card_line}: W8A8 {np.mean(q_seconds):.3f} s per request, "
+              f"{q_step_ms:.3f} ms per UNet step; bf16 {np.mean(seconds):.3f} s, "
+              f"{step_ms:.3f} ms; W8A8 vs bf16 UNet call cosine {cos:.5f}", flush=True)
+        require(cos > 0.95, "the W8A8 UNet call tracks the bf16 one (cosine > 0.95)")
+
+    with phase("k4 path"):
+        k4_launches, _, _ = k4_path(dev, qzoo)
+
+    def entry(name, source, replaces, launches, rows):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for _, r in rows),
+                "ms": rows[0][1]["ms"], "plain_ms": rows[0][1]["plain_ms"]}
     kernels = [
-        {"name": "flash_nomax", "route": "cuda",
-         "source": "anyedit_tpu_torch/csrc/flash_nomax.cu",
-         "replaces": "anyedit_tpu/ops/attention.py:153",
-         "launches": launches["flash_nomax"],
-         "max_abs_err": max(r["max_abs_err"] for _, r in k1),
-         "ms": k1[0][1]["ms"], "plain_ms": k1[0][1]["plain_ms"]},
-        {"name": "group_norm", "route": "cuda",
-         "source": "anyedit_tpu_torch/csrc/group_norm.cu",
-         "replaces": "anyedit_tpu/ops/groupnorm.py:160",
-         "launches": launches["group_norm"],
-         "max_abs_err": max(r["max_abs_err"] for _, r in k2),
-         "ms": k2[0][1]["ms"], "plain_ms": k2[0][1]["plain_ms"]},
+        entry("flash_nomax", "anyedit_tpu_torch/csrc/flash_nomax.cu",
+              "anyedit_tpu/ops/attention.py:153", launches["flash_nomax"], k1),
+        entry("group_norm", "anyedit_tpu_torch/csrc/group_norm.cu",
+              "anyedit_tpu/ops/groupnorm.py:160", launches["group_norm"], k2),
+        entry("flash_attention", "anyedit_tpu_torch/csrc/flash_attention.cu",
+              "anyedit_tpu/ops/attention.py:85", k3_launches, k3),
+        entry("flash_int8", "anyedit_tpu_torch/csrc/flash_int8.cu",
+              "anyedit_tpu/ops/attention.py:237", k4_launches, k4),
     ]
+    kernels[0]["launches_w8a8_slice"] = q_launches["flash_nomax"]
+    kernels[1]["launches_w8a8_slice"] = q_launches["group_norm"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

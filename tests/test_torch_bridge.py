@@ -119,6 +119,37 @@ def test_bridge_keys_are_the_port_modules_keys(name):
     module.load_state_dict(sd, strict=True)
 
 
+def _quant_tree():
+    """The JAX package's W8A8 UNet tree (quantize_params of `unet_params`)."""
+    from anyedit_tpu.ops.quant import quantize_params
+    qunet = UNet2DCondition(dataclasses.replace(JAX_UNET, quant=True))
+    shapes = jax.eval_shape(lambda: qunet.init(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 8)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, 77, JAX_UNET.context_dim))))
+    return {"params": quantize_params(shapes["params"], unet_params()["params"])}
+
+
+def test_bridge_round_trips_quant_tree():
+    """A JAX quantize_params tree -> the port's W8A8 state dict -> back
+    (`unet_tree`): every leaf bit-exact, int8 kernels still int8; the state
+    dict loads strictly into the port's quant UNet."""
+    tree = _quant_tree()
+    sd = bridge.unet_state_dict(tree, 2)
+    assert sd["down_blocks.0.resnets.0.conv1.weight"].dtype == torch.int8
+    assert sd["down_blocks.0.resnets.0.conv1.kernel_scale"].dtype == torch.float32
+    qunet = tunet.UNet2DCondition(dataclasses.replace(PORT_UNET, quant=True))
+    assert {k: tuple(v.shape) for k, v in sd.items()} == \
+        {k: tuple(v.shape) for k, v in qunet.state_dict().items()}
+    qunet.load_state_dict(sd, strict=True)
+    back = bridge.unet_tree(qunet.state_dict(), tree, 2)
+    flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (p, a), (_, b) in zip(flat_a, flat_b):
+        assert np.asarray(b).dtype == np.asarray(a).dtype, p
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(p))
+
+
 def test_bridge_layout_transforms():
     """Conv kernels go HWIO -> OIHW and Dense kernels (in, out) -> (out, in)."""
     tree = unet_params()["params"]

@@ -1,7 +1,7 @@
 """The port's hand kernels and their wrappers, without JAX.
 
-Tests marked `cuda` hold K1 and K2 against their plain versions on the
-card and skip without one. This file imports no JAX, so it also runs on a
+Tests marked `cuda` hold K1-K4 against their plain versions, and the W8A8
+int8 contraction against float64, on the card, and skip without one. This file imports no JAX, so it also runs on a
 machine with the card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -14,6 +14,7 @@ import torch
 
 from anyedit_tpu_torch.ops import attention as tattn
 from anyedit_tpu_torch.ops import groupnorm as tgn
+from anyedit_tpu_torch.ops import kernel_check as kc
 
 torch.set_num_threads(1)
 
@@ -43,6 +44,28 @@ def test_attention_route(monkeypatch, lq, lkv, d, routed):
     assert calls == ([(1, lq, d)] if routed else [])
 
 
+@pytest.mark.parametrize("use_flash", [None, False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("lq,lkv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160)])
+def test_attention_route_use_flash_and_int8(monkeypatch, use_flash, int8, lq, lkv, d):
+    """use_flash=True sends every shape to K3 (keys masked at the true Lkv),
+    False every shape to sdpa, None takes K1's route; `int8` changes
+    nothing (the JAX route: `attention()` never reads it)."""
+    calls = []
+    monkeypatch.setattr(tattn, "flash_nomax",
+                        lambda q, k, v, s: calls.append("k1") or q)
+    monkeypatch.setattr(tattn, "flash_attention",
+                        lambda q, k, v, s: calls.append(("k3", k.shape[1])) or q)
+    monkeypatch.setattr(tattn, "flash_int8", lambda *a, **kw: calls.append("k4"))
+    monkeypatch.setattr(tattn, "sdpa", lambda q, k, v, scale: calls.append("sdpa") or q)
+    q = torch.zeros(1, 1, lq, d)
+    kv = torch.zeros(1, 1, lkv, d)
+    tattn.attention(q, kv, kv, use_flash=use_flash, int8=int8)
+    want = {True: [("k3", lkv)], False: ["sdpa"],
+            None: ["k1" if lq == lkv == 4096 else "sdpa"]}[use_flash]
+    assert calls == want
+
+
 def test_flash_nomax_clamp_saturates_not_overflows():
     """Logits beyond the clamp saturate to a uniform softmax (test_ops.py:201)."""
     q = torch.full((1, 512, 128), 30.0, dtype=torch.bfloat16)
@@ -52,17 +75,22 @@ def test_flash_nomax_clamp_saturates_not_overflows():
     assert float((out - 1.0).abs().max()) < 1e-2
 
 
-@pytest.mark.parametrize("op", ["flash_nomax", "group_norm"])
+@pytest.mark.parametrize("op", ["flash_nomax", "group_norm", "flash_attention",
+                                "flash_int8", "int8_matmul"])
 def test_wrappers_raise_off_cpu_and_cuda(op):
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel or raises, never falls back."""
     x = torch.zeros(1, 64, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        if op == "flash_nomax":
-            tattn.flash_nomax(x, x, x, 1.0)
-        else:
+        if op == "group_norm":
             c = torch.zeros(64, device="meta")
             tgn.group_norm(x, c, c, num_groups=8)
+        elif op == "int8_matmul":
+            from anyedit_tpu_torch.ops.quant import int8_matmul
+            a = torch.zeros(32, 8, dtype=torch.int8, device="meta")
+            int8_matmul(a, a.t())
+        else:
+            getattr(tattn, op)(x, x, x, 1.0)
 
 
 # ---- the hand kernels on the card ---------------------------------------
@@ -104,3 +132,41 @@ def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
         assert float(err.max()) <= 1e-5
     else:
         assert float(err.max()) <= 5e-2 and float(err.mean()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,lq,lkv,d,dtype", [
+    (24, 1024, 77, 80, torch.bfloat16), (24, 64, 64, 160, torch.bfloat16),
+    (4, 1000, 1000, 40, torch.bfloat16), (6, 300, 77, 40, torch.float32)])
+def test_flash_attention_kernel_matches_plain(cuda, bh, lq, lkv, d, dtype):
+    """K3 vs its plain version: fp32 inputs within 2e-5 (test_ops.py:26);
+    bf16 inputs within one bf16 rounding of the output plus 1e-5 for fp32
+    sums taken in another order near zero."""
+    before = tattn.flash_attention.launches
+    r = kc.check_flash_attention(bh, lq, lkv, d, cuda, dtype=dtype, iters=1)
+    assert tattn.flash_attention.launches > before and r["finite"]
+    if dtype == torch.float32:
+        assert r["max_abs_err"] <= 2e-5
+    else:
+        assert r["bf16_ulps"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,l,d", [(24, 1024, 80), (4, 1000, 40)])
+def test_flash_int8_kernel_matches_plain(cuda, bh, l, d):
+    """K4 vs its plain version on the same bf16 inputs (same quantization,
+    same 64-key tiles): mean-abs <= 1e-4, max-abs <= 3e-2; and within the
+    JAX package's relative-L2 bound of fp32 sdpa at these lengths (0.03)."""
+    before = tattn.flash_int8.launches
+    r = kc.check_flash_int8(bh, l, d, cuda, iters=1)
+    assert tattn.flash_int8.launches > before and r["finite"]
+    assert r["mean_abs_err"] <= 1e-4 and r["max_abs_err"] <= 3e-2
+    assert r["rel_l2_sdpa"] < 0.03
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv", "dense"])
+def test_int8_contraction_is_exact_on_the_card(cuda, kind):
+    """The W8A8 int32 contraction (int8 im2col + torch._int_mm) equals a
+    float64 contraction of the same full-range codes, bit for bit."""
+    assert kc.check_int8_contraction(kind, cuda, iters=1)["exact"]

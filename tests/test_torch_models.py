@@ -227,6 +227,35 @@ def test_tiny_unet_matches(controlnet):
     _close(out, ref, 1e-3)
 
 
+def test_tiny_unet_through_flash_processor_matches():
+    """TINY_UNET with a processor that calls `attention(use_flash=True)` at
+    every site (K3's route; its plain version on the CPU), against the JAX
+    UNet with the same processor in interpret mode (the Pallas kernel), at
+    16x16 latents: 1e-4 in fp32, both sides' softmax being fp32."""
+    from anyedit_tpu.ops.attention import attention as jax_attention
+    params = unet_params()
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 16, 16, 8)).astype(np.float32)
+    t = np.array([981, 501, 1], np.int32)
+    ctx = rng.standard_normal((3, 77, 32)).astype(np.float32)
+
+    def jproc(q, k, v, meta, extra):
+        return jax_attention(q, k, v, use_flash=True, interpret=True)
+    calls = []
+
+    def tproc(q, k, v, meta, extra):
+        calls.append(meta.name)
+        return tlayers.attention_op(q, k, v, use_flash=True)
+    ref = jax.jit(lambda p, x, t, c: UNet2DCondition(JAX_UNET).apply(
+        p, x, t, c, jproc))(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx))
+    unet = TUNet(PORT_UNET)
+    unet.load_state_dict(bridge.unet_state_dict(params, 2), strict=True)
+    with torch.no_grad():
+        out = unet(T(x), T(t).long(), T(ctx), processor=tproc)
+    assert len(calls) == 2 * 4       # self + cross at down_0.tf_0, mid.tf, up_0.tf_0/1
+    _close(out, ref, 1e-4)
+
+
 def test_tiny_vae_encode_decode_match():
     """TINY_VAE encode (mean, clipped logvar) and decode: 1e-3."""
     params = vae_params()

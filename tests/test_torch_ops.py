@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from anyedit_tpu.ops.attention import attention as jax_attention
+from anyedit_tpu.ops.attention import flash_attention as jax_flash_attention
+from anyedit_tpu.ops.attention import flash_int8 as jax_flash_int8
 from anyedit_tpu.ops.attention import flash_nomax as jax_flash_nomax, sdpa_xla
 from anyedit_tpu.ops.groupnorm import group_norm as jax_group_norm
 from anyedit_tpu.ops.resize import denormalize_to_u8 as jax_denorm
@@ -59,6 +62,70 @@ def test_attention_matches_sdpa_xla(lq, lkv, d):
     ref = sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     out = tattn.attention(*(torch.from_numpy(a) for a in (q, k, v)))
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("lq,lkv,d", [(256, 256, 64), (300, 77, 40), (128, 512, 80)])
+def test_flash_attention_plain_matches_jax_use_flash(lq, lkv, d):
+    """`attention(use_flash=True)` (K3's plain version on the CPU) vs the
+    JAX `attention(use_flash=True, interpret=True)` (the Pallas kernel with
+    its pads) at the test_ops.py:17 shapes, fp32: 2e-5."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 3, lq, d)).astype(np.float32)
+    k = rng.standard_normal((2, 3, lkv, d)).astype(np.float32)
+    v = rng.standard_normal((2, 3, lkv, d)).astype(np.float32)
+    ref = jax_attention(*(jnp.asarray(a) for a in (q, k, v)), use_flash=True,
+                        interpret=True)
+    out = tattn.attention(*(torch.from_numpy(a) for a in (q, k, v)), use_flash=True)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_kv_len_masks_key_padding():
+    """Keys past `kv_len` are masked, as in the JAX kernel: the same zero-
+    padded k/v (77 keys padded to 128) through `flash_attention` and the
+    Pallas kernel agree at 2e-5 in fp32 (q padded to the JAX block)."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((6, 64, 40)).astype(np.float32)
+    k, v = (np.pad(rng.standard_normal((6, 77, 40)), ((0, 0), (0, 51), (0, 0)))
+            .astype(np.float32) for _ in range(2))
+    scale = 1.0 / math.sqrt(40)
+    pad = lambda a: jnp.pad(jnp.asarray(a), ((0, 0), (0, 0), (0, 88)))
+    ref = jax_flash_attention(pad(q), pad(k), pad(v), scale, kv_len=77, block_q=64,
+                              block_k=128, interpret=True)[..., :40]
+    out = tattn.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), scale,
+                                kv_len=77)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("l,d,kv_len", [(512, 40, None), (256, 80, 200)])
+def test_flash_int8_plain_matches_jax_kernel(l, d, kv_len):
+    """K4's plain version vs the Pallas kernel (interpret mode, D padded to
+    128 as `_self_attn_int8` does, the same 64-key tiles), fp32 inputs:
+    max-abs 1e-3 and mean-abs 1e-5. The quantization is the same; what
+    differs is fp32 order, which flips the odd p8 = round(127 p) code."""
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal((2, l, d)).astype(np.float32) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    pad = lambda a: jnp.pad(jnp.asarray(a), ((0, 0), (0, 0), (0, 128 - d)))
+    ref = jax_flash_int8(pad(q), pad(k), pad(v), scale, block_q=l // 2, block_k=64,
+                         kv_len=kv_len, interpret=True)[..., :d]
+    out = tattn.flash_int8(*(torch.from_numpy(a) for a in (q, k, v)), scale,
+                           kv_len=kv_len)
+    err = np.abs(_np(out) - _np(ref))
+    assert err.max() <= 1e-3 and err.mean() <= 1e-5, (err.max(), err.mean())
+
+
+def test_self_attn_int8_tracks_sdpa():
+    """`self_attn_int8` over (B, H, L, D) is `flash_int8` per head, and stays
+    within the JAX package's bound of fp32 sdpa (relative L2 < 0.03,
+    test_quant.py:207)."""
+    rng = np.random.default_rng(14)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 256, 40)).astype(np.float32))
+               for _ in range(3))
+    out = tattn.self_attn_int8(q, k, v)
+    heads = tattn.flash_int8(q[0], k[0], v[0], 1.0 / math.sqrt(40))
+    torch.testing.assert_close(out[0], heads, rtol=0, atol=0)
+    ref = _np(sdpa_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v))))
+    assert np.linalg.norm(_np(out) - ref) / np.linalg.norm(ref) < 0.03
 
 
 # ---- groupnorm ----------------------------------------------------------

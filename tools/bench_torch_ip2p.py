@@ -1,16 +1,20 @@
 """bench.py's workload through the PyTorch port, on one NVIDIA GPU.
 
     python3 tools/bench_torch_ip2p.py              # pairs/hour, one JSON line
-    python3 tools/bench_torch_ip2p.py --kernels    # K1/K2 vs plain, JSON lines
+    python3 tools/bench_torch_ip2p.py --int8       # the same with the W8A8 UNet
+    python3 tools/bench_torch_ip2p.py --kernels    # K1-K4 vs plain, JSON lines
     python3 tools/bench_torch_ip2p.py --profile    # device time by kernel class
+    python3 tools/bench_torch_ip2p.py --profile --int8
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
 random weights drawn on the card (throughput does not depend on the
-weights). The time is the best of 3 runs after one warm-up run, host clock
-around work that ends in a device synchronise. `--kernels` times the hand
-kernels against their plain PyTorch versions at the main path's shapes.
-Every line names the card and its power limit.
+weights). `--int8` mirrors `bench.py --int8`: the UNet is W8A8, quantized
+from the float init as the zoo does (ops/quant.py), and the VAE stays bf16.
+The time is the best of 3 runs after one warm-up run, host clock around
+work that ends in a device synchronise. `--kernels` times the hand kernels
+against their plain PyTorch versions at the paths' shapes. Every line
+names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -38,17 +42,36 @@ def card() -> dict:
             "nvidia_smi": out.strip().splitlines()[0]}
 
 
-def bench_pairs_per_hour(dev, n: int) -> dict:
+def build_unet(dev, int8: bool):
+    """The full-width IP2P UNet from seed 0: bf16, or W8A8 quantized from
+    the fp32 init (the float values the JAX package quantizes)."""
+    import dataclasses
+
+    import torch
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET, UNet2DCondition
+    from anyedit_tpu_torch.ops.quant import quantize_state_dict
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    if not int8:
+        return seeded_init_(UNet2DCondition(SD15_IP2P_UNET, device=dev), 0).eval()
+    fcfg = dataclasses.replace(SD15_IP2P_UNET, dtype=torch.float32)
+    float_sd = seeded_init_(UNet2DCondition(fcfg, device=dev), 0).state_dict()
+    unet = UNet2DCondition(dataclasses.replace(SD15_IP2P_UNET, quant=True), device=dev)
+    unet.load_state_dict(quantize_state_dict(unet, float_sd), strict=True)
+    return unet.eval()
+
+
+def bench_pairs_per_hour(dev, n: int, int8: bool = False) -> dict:
     import torch
     from anyedit_tpu_torch.diffusion import ip2p_edit
-    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET, UNet2DCondition
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET
     from anyedit_tpu_torch.models.vae import SD_VAE, AutoencoderKL
     from anyedit_tpu_torch.ops.kernel_check import time_ms
     from anyedit_tpu_torch.schedulers import make_noise_schedule
     from anyedit_tpu_torch.weights.init import seeded_init_
 
     ucfg, vcfg = SD15_IP2P_UNET, SD_VAE
-    unet = seeded_init_(UNet2DCondition(ucfg, device=dev), 0).eval()
+    unet = build_unet(dev, int8)
     vae = seeded_init_(AutoencoderKL(vcfg, device=dev), 1).eval()
     ns = make_noise_schedule(device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -85,8 +108,9 @@ def bench_pairs_per_hour(dev, n: int) -> dict:
         enc_ms = time_ms(lambda: vae.encode(px), iters=3)
         dec_ms = time_ms(lambda: vae.decode(torch.randn(n, hw, hw, lc, device=dev)),
                          iters=3)
+    mode = ", W8A8 int8 UNet" if int8 else ""
     return {"metric": "edited pairs/hour/GPU (512px, 50-step DDIM, 3-way CFG "
-                      f"IP2P, batch {n}, PyTorch port)",
+                      f"IP2P{mode}, batch {n}, PyTorch port)",
             "value": 3600.0 / best * n, "unit": "pairs/hour",
             "seconds_per_batch": best, "unet_step_ms": step_ms,
             "vae_encode_ms": enc_ms, "vae_decode_ms": dec_ms,
@@ -95,11 +119,23 @@ def bench_pairs_per_hour(dev, n: int) -> dict:
 
 def bench_kernels(dev) -> list[dict]:
     """K1 and K2 against their plain versions at the main path's shapes
-    (n = 2 images: UNet batch 6, so B*H = 48; VAE at n = 1)."""
+    (n = 2 images: UNet batch 6, so B*H = 48; VAE at n = 1); K3 and K4 at
+    their paths' shapes (one image: B*H = 24), and the W8A8 int8
+    contraction."""
     import torch
     from anyedit_tpu_torch.ops import kernel_check as kc
 
     rows = []
+    for bh, lq, lkv, d in ((24, 4096, 4096, 40), (24, 1024, 1024, 80),
+                           (24, 256, 256, 160), (24, 64, 64, 160), (24, 4096, 77, 40),
+                           (24, 1024, 77, 80), (24, 256, 77, 160), (24, 64, 77, 160)):
+        r = kc.check_flash_attention(bh, lq, lkv, d, dev)
+        rows.append({"kernel": "flash_attention", "shape": [bh, lq, lkv, d], **r})
+    for bh, l, d in ((24, 4096, 40), (24, 1024, 80)):
+        r = kc.check_flash_int8(bh, l, d, dev)
+        rows.append({"kernel": "flash_int8", "shape": [bh, l, d], **r})
+    for kind in ("conv", "dense"):
+        rows.append({"kernel": f"int8 {kind}", **kc.check_int8_contraction(kind, dev)})
     for bh, l, d in ((48, 4096, 40), (48, 1024, 80)):
         r = kc.check_flash_nomax(bh, l, d, dev)
         rows.append({"kernel": "flash_nomax", "shape": [bh, l, d], **r})
@@ -117,6 +153,9 @@ def _category(kernel: str) -> str:
     n = kernel.lower()
     for cat, keys in (("K1 flash_nomax", ("flash_nomax",)),
                       ("K2 group_norm", ("group_norm",)),
+                      ("K3 flash_attention", ("flash_attention",)),
+                      ("K4 flash_int8", ("flash_int8",)),
+                      ("int8 matmul (cuBLASLt)", ("gemm_s8", "imma", "i8i8", "s8s8")),
                       ("conv (cuDNN, incl. layout transposes)",
                        ("conv", "cudnn", "fprop", "nchwtonhwc", "nhwctonchw")),
                       ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass", "nvjet", "gemv")),
@@ -129,22 +168,24 @@ def _category(kernel: str) -> str:
     return "other"
 
 
-def profile_breakdown(dev) -> list[dict]:
+def profile_breakdown(dev, int8: bool = False) -> list[dict]:
     """Device time by kernel class for one full-width UNet call at batch 3
     (one request) and 24 (the bench batch), and for VAE encode and decode at
     n = 1: `torch.profiler` over a few calls, beside the CUDA-event time of
-    the same calls unprofiled. busy_share = device busy / event time."""
+    the same calls unprofiled. busy_share = device busy / event time. With
+    `int8` the UNet is the W8A8 one."""
     import collections
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET, UNet2DCondition
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET
     from anyedit_tpu_torch.models.vae import SD_VAE, AutoencoderKL
     from anyedit_tpu_torch.ops.kernel_check import time_ms
     from anyedit_tpu_torch.weights.init import seeded_init_
 
-    unet = seeded_init_(UNet2DCondition(SD15_IP2P_UNET, device=dev), 0).eval()
+    unet = build_unet(dev, int8)
+    tag = " W8A8" if int8 else ""
     vae = seeded_init_(AutoencoderKL(SD_VAE, device=dev), 1).eval()
     hw = SIZE // 8
     work = []
@@ -153,7 +194,7 @@ def profile_breakdown(dev) -> list[dict]:
         t = torch.full((b,), 501, device=dev)
         ctx = torch.randn(b, 77, SD15_IP2P_UNET.context_dim, device=dev,
                           dtype=torch.bfloat16)
-        work.append((f"unet batch {b}", lambda x=x, t=t, ctx=ctx: unet(x, t, ctx), 5))
+        work.append((f"unet{tag} batch {b}", lambda x=x, t=t, ctx=ctx: unet(x, t, ctx), 5))
     px = torch.randn(1, SIZE, SIZE, 3, device=dev, dtype=torch.bfloat16)
     z = torch.randn(1, hw, hw, SD_VAE.latent_channels, device=dev)
     work += [("vae encode n=1", lambda: vae.encode(px), 3),
@@ -167,7 +208,7 @@ def profile_breakdown(dev) -> list[dict]:
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-        ms, launches = collections.Counter(), collections.Counter()
+        ms, launches, by_kernel = (collections.Counter() for _ in range(3))
         for e in prof.key_averages():
             # self_cuda_time_total is the older torch's name of the field
             us = getattr(e, "self_device_time_total", None)
@@ -177,11 +218,13 @@ def profile_breakdown(dev) -> list[dict]:
             cat = _category(e.key)
             ms[cat] += us / iters / 1e3
             launches[cat] += e.count / iters
+            by_kernel[e.key[:90]] += us / iters / 1e3
         busy = sum(ms.values())
         rows.append({"label": label, "event_ms": event_ms, "device_busy_ms": busy,
                      "busy_share": busy / event_ms,
                      "ms_by_class": dict(ms.most_common()),
-                     "launches_by_class": {k: round(v) for k, v in launches.items()}})
+                     "launches_by_class": {k: round(v) for k, v in launches.items()},
+                     "top_kernels_ms": dict(by_kernel.most_common(10))})
     return rows
 
 
@@ -190,10 +233,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--kernels", action="store_true",
-                      help="time K1/K2 against their plain versions instead")
+                      help="time K1-K4 against their plain versions instead")
     mode.add_argument("--profile", action="store_true",
                       help="device time by kernel class for the UNet and VAE instead")
+    ap.add_argument("--int8", action="store_true",
+                    help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
+    if args.int8 and args.kernels:
+        ap.error("--int8 applies to the bench and --profile")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -201,11 +248,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     device = card()
-    if args.kernels or args.profile:
-        for row in (bench_kernels if args.kernels else profile_breakdown)(dev):
-            print(json.dumps({**row, "device": device}))
+    if args.kernels:
+        rows = bench_kernels(dev)
+    elif args.profile:
+        rows = profile_breakdown(dev, args.int8)
     else:
-        print(json.dumps({**bench_pairs_per_hour(dev, BATCH), "device": device}))
+        rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
+    for row in rows:
+        print(json.dumps({**row, "device": device}))
     return 0
 
 
