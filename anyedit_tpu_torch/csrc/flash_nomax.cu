@@ -8,176 +8,403 @@
 //   l  = sum(p)                     (fp32, from the unrounded p)
 //   o  = (bf16(p) v) / max(l, 1e-30)
 //
-// On the H100 this is bounded by tensor-core FLOPs: 4·L²·D per head, with
-// D = 40 or 80 on the UNet's level-0 and level-1 self-attention. The simple
-// design here: one block of 4 warps per (head, 64-row q tile); K/V stream
-// through shared memory in 64-key tiles; each warp owns 16 q rows and runs
-// bf16 WMMA (mma.sync) 16x16x16 tiles; the output accumulator stays in fp32
-// fragments and l in fp32 registers. D is zero-padded in shared memory to a
-// multiple of 16 (40 -> 48, 80 -> 80), which is exact. L is never padded: a
-// zero key would add exp2(0) = 1 to l. Left for later: wgmma and TMA, a
-// pipelined K/V ring, keeping S/P in registers instead of a shared-memory
-// round trip, and vectorised global loads.
+// What bounds it on the H100. At D = 40 or 80 (the UNet's level-0 and
+// level-1 self-attention) each exp2 comes with only 4·D = 160 or 320
+// tensor-core FLOPs. The card has 989 TFLOP/s of bf16 tensor math but about
+// 3.9 T exp2/s on its MUFU units, so at D = 40 the exp (about 0.10 ms at
+// (24, 4096, 40)) is a tighter ceiling than the FLOPs (0.065 ms); the bytes
+// (q, k, v, o once: 31 MB, 0.009 ms) are far below both. The design keeps
+// the MUFU busy and everything else out of its way:
+//   * the FA2 form on `mma.sync.m16n8k16` (bf16 in, fp32 accumulate). Each
+//     warp owns one or two m16 tiles of q rows (two at D <= 48, so every K
+//     or V fragment read from shared memory feeds two products); its Q
+//     fragments stay in registers for the whole key loop. S = Q K^T lands in
+//     the accumulator registers, where the clamp, exp2 and the row sums run;
+//     the probabilities are packed into bf16 A-fragments in registers and
+//     fed straight to the PV product, so neither S nor P touches shared
+//     memory. Where D stops 8 short of its k16 padding (40 of 48), the last
+//     step of QK^T is an m16n8k8 product;
+//   * K and V stream through a 3-stage ring of 64-key tiles in shared memory,
+//     filled with 16-byte `cp.async` copies while the warps compute on an
+//     earlier stage (one __syncthreads per tile). D that is not a multiple
+//     of 8 (or a misaligned pointer) takes plain loads into the same ring;
+//   * rows are padded to a stride of round16(D) + 8 bf16 (56 at D = 40, 88
+//     at D = 80), an odd multiple of 16 bytes, so the `ldmatrix` reads (K
+//     as is, V with `.trans`) are free of bank conflicts. The pad columns
+//     D..round16(D) are zeroed once, before the loop, and never written
+//     again: QK^T runs its k16 steps over them (exact zeros), PV skips the
+//     n8 tiles past D (N = 40 is five of them);
+//   * L is never padded: a zero key would add exp2(0) = 1 to l.
+// Left for later: `wgmma` with TMA and warp specialisation, so that the
+// exp of one tile overlaps the tensor-core work of the next within a warp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-using namespace nvcuda;
+#include <cstdint>
 
 namespace {
 
-constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kStages = 3;
 constexpr float kClamp = 80.f;
 
 template <int DP>
 struct Layout {
-  static constexpr int ldq = DP + 8;                                  // Q/K/V rows (bf16)
-  static constexpr int lds = (DP > kBlockK ? DP : kBlockK) + 4;       // S and O staging (fp32)
-  static constexpr int ldp = kBlockK + 8;                             // P rows (bf16)
-  static constexpr size_t qkv_bytes = 3ull * kBlockQ * ldq * 2;
-  static constexpr size_t s_bytes = 1ull * kWarps * 16 * lds * 4;
-  static constexpr size_t p_bytes = 1ull * kWarps * 16 * ldp * 2;
-  static constexpr size_t bytes = qkv_bytes + s_bytes + p_bytes;
+  static constexpr int ld = DP + 8;  // bf16 row stride: an odd multiple of 16 bytes
+  static constexpr int tile = kBlockK * ld;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One 64-key tile of K and V into a ring stage: 16-byte cp.async when every
+// row is whole 16-byte units, plain loads otherwise. Columns >= D are not
+// touched (they hold the zeros written before the loop).
+template <int DP, int THREADS>
+__device__ __forceinline__ void load_kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                        const __nv_bfloat16* k, const __nv_bfloat16* v,
+                                        int D, bool vec) {
+  constexpr int ld = Layout<DP>::ld;
+  if (vec) {
+    const int cpr = D / 8;  // 16-byte units per row
+    for (int i = threadIdx.x; i < kBlockK * cpr; i += THREADS) {
+      const int r = i / cpr, c = (i - r * cpr) * 8;
+      cp_async16(ks + r * ld + c, k + static_cast<size_t>(r) * D + c);
+      cp_async16(vs + r * ld + c, v + static_cast<size_t>(r) * D + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBlockK * D; i += THREADS) {
+      const int r = i / D, c = i - r * D;
+      ks[r * ld + c] = k[i];
+      vs[r * ld + c] = v[i];
+    }
+  }
+}
+
+// d (16x8 fp32) += a (16x8 bf16, row) . b (8x8 bf16, col): the last k8 step
+// of QK^T where D stops 8 short of its k16 padding (40 of 48).
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1,
+                                            uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+// WARPS warps, each owning MT m16 tiles (16 * MT q rows): every K or V
+// fragment read from shared memory feeds MT products.
+template <int DP, int WARPS, int MT>
+__global__ void __launch_bounds__(WARPS * 32)
 flash_nomax_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int L, int D, float qscale) {
-  using Lay = Layout<DP>;
+                   __nv_bfloat16* __restrict__ o, int L, int D, float qscale, int vec) {
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kBlockQ = WARPS * 16 * MT;
+  constexpr int ld = Layout<DP>::ld;
+  constexpr int KS = DP / 16;  // k16 steps of QK^T
+  constexpr int NT = DP / 8;   // n8 tiles of the output (those past D are skipped)
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + kBlockQ * Lay::ldq;
-  __nv_bfloat16* vs = ks + kBlockK * Lay::ldq;
-  float* ss = reinterpret_cast<float*>(smem + Lay::qkv_bytes);
-  __nv_bfloat16* ps =
-      reinterpret_cast<__nv_bfloat16*>(smem + Lay::qkv_bytes + Lay::s_bytes);
+  __nv_bfloat16* kv = qs + kBlockQ * ld;  // stage s: K at kv + 2s·tile, V after it
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = lane >> 1;   // each lane pair shares one of the warp's 16 rows
-  const int half = lane & 1;   // and splits its columns even/odd
-  float* sw = ss + warp * 16 * Lay::lds;
-  __nv_bfloat16* pw = ps + warp * 16 * Lay::ldp;
-
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t head = static_cast<size_t>(blockIdx.y) * L * D;
   const int q0 = blockIdx.x * kBlockQ;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  const int ntiles = L / kBlockK;
+  const __nv_bfloat16* kh = k + head;
+  const __nv_bfloat16* vh = v + head;
+  // The last k16 step of QK^T covers only zero pad past its first 8 columns.
+  const bool tail8 = D <= DP - 8;
 
+  // Zero the pad columns of every ring stage once; the loads never write them.
+  for (int i = threadIdx.x; i < 2 * kStages * kBlockK * (ld - D); i += kThreads) {
+    const int r = i / (ld - D);
+    kv[r * ld + D + (i - r * (ld - D))] = __float2bfloat16_rn(0.f);
+  }
+  // Q: prescale in fp32, round to bf16 (the kernel's first rounding point).
   for (int i = threadIdx.x; i < kBlockQ * DP; i += kThreads) {
     const int r = i / DP, c = i - r * DP;
     float x = 0.f;
     if (c < D) x = __bfloat162float(q[head + static_cast<size_t>(q0 + r) * D + c]) * qscale;
-    qs[r * Lay::ldq + c] = __float2bfloat16_rn(x);
+    qs[r * ld + c] = __float2bfloat16_rn(x);
+  }
+  __syncthreads();  // pads are zero before any cp.async lands beside them
+
+  // Prologue: the first kStages - 1 tiles in flight.
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles)
+      load_kv<DP, kThreads>(kv + 2 * s * Layout<DP>::tile, kv + (2 * s + 1) * Layout<DP>::tile,
+                            kh + static_cast<size_t>(s) * kBlockK * D,
+                            vh + static_cast<size_t>(s) * kBlockK * D, D, vec);
+    cp_async_commit();
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
+  // This warp's Q fragments, held in registers for the whole key loop.
+  uint32_t qa[MT][KS][4];
 #pragma unroll
-  for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  float lsum = 0.f;
+  for (int m = 0; m < MT; ++m) {
+    const __nv_bfloat16* qw = qs + ((warp * MT + m) * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * ld +
+                              (lane / 16) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[m][kk], qw + kk * 16);
+  }
 
-  for (int k0 = 0; k0 < L; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = threadIdx.x; i < kBlockK * DP; i += kThreads) {
-      const int r = i / DP, c = i - r * DP;
-      const size_t g = head + static_cast<size_t>(k0 + r) * D + c;
-      ks[r * Lay::ldq + c] = c < D ? k[g] : zero;
-      vs[r * Lay::ldq + c] = c < D ? v[g] : zero;
+  float acc[MT][NT][4];
+  float lsum[MT][2];  // partial row sums of rows lane/4 and lane/4 + 8
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    lsum[m][0] = lsum[m][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+  }
+
+  // ldmatrix lane offsets: K (non-transposed; the k8 tail reads the first
+  // 8 columns of 16 keys) and V (transposed) tiles.
+  const int k_off = ((lane % 8) + (lane / 16) * 8) * ld + ((lane / 8) % 2) * 8;
+  const int k8_off = ((lane % 8) + (lane / 8) * 8) * ld;
+  const int v_off = ((lane % 8) + ((lane / 8) % 2) * 8) * ld + (lane / 16) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t has landed for every thread; stage (t - 1) is free
+    {
+      const int nt = t + kStages - 1;
+      const int s = nt % kStages;
+      if (nt < ntiles)
+        load_kv<DP, kThreads>(kv + 2 * s * Layout<DP>::tile,
+                              kv + (2 * s + 1) * Layout<DP>::tile,
+                              kh + static_cast<size_t>(nt) * kBlockK * D,
+                              vh + static_cast<size_t>(nt) * kBlockK * D, D, vec);
+      cp_async_commit();
     }
-    __syncthreads();
+    const int s = t % kStages;
+    const __nv_bfloat16* ks = kv + 2 * s * Layout<DP>::tile;
+    const __nv_bfloat16* vs = ks + Layout<DP>::tile;
 
-    // S (16 x 64) = Q_warp (16 x DP) . K_tile^T (DP x 64)
+    // S (16 x 64 per m16 tile) = Q . K_tile^T, in 8 n8 accumulator tiles.
+    float sc[MT][kBlockK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, qs + warp * 16 * Lay::ldq + kk * 16, Lay::ldq);
-        wmma::load_matrix_sync(b, ks + n * 16 * Lay::ldq + kk * 16, Lay::ldq);
-        wmma::mma_sync(s, a, b, s);
+      for (int j = 0; j < kBlockK / 8; ++j) sc[m][j][0] = sc[m][j][1] = sc[m][j][2] = sc[m][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (kk == KS - 1 && tail8) {
+#pragma unroll
+        for (int jp = 0; jp < kBlockK / 32; ++jp) {
+          uint32_t b[4];  // first 8 columns of keys jp*32 .. jp*32 + 31
+          ldsm_x4(b, ks + jp * 32 * ld + kk * 16 + k8_off);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              mma_bf16_k8(sc[m][4 * jp + e], qa[m][kk][0], qa[m][kk][1], b[e]);
+        }
+      } else {
+#pragma unroll
+        for (int jp = 0; jp < kBlockK / 16; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, ks + jp * 16 * ld + kk * 16 + k_off);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_bf16(sc[m][2 * jp], qa[m][kk], b[0], b[1]);
+            mma_bf16(sc[m][2 * jp + 1], qa[m][kk], b[2], b[3]);
+          }
+        }
       }
-      wmma::store_matrix_sync(sw + n * 16, s, Lay::lds, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    for (int c = half; c < kBlockK; c += 2) {
-      const float p = exp2f(fminf(sw[row * Lay::lds + c], kClamp));
-      lsum += p;
-      pw[row * Lay::ldp + c] = __float2bfloat16_rn(p);
+    // p = exp2(min(s, 80)) in the accumulators; l from the unrounded p; P
+    // packed as bf16 A-fragments of the PV product (16 keys per k16 step).
+    uint32_t pa[MT][kBlockK / 16][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+        const float p0 = fast_exp2(fminf(sc[m][j][0], kClamp));
+        const float p1 = fast_exp2(fminf(sc[m][j][1], kClamp));
+        const float p2 = fast_exp2(fminf(sc[m][j][2], kClamp));
+        const float p3 = fast_exp2(fminf(sc[m][j][3], kClamp));
+        lsum[m][0] += p0 + p1;
+        lsum[m][1] += p2 + p3;
+        pa[m][j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pa[m][j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
     }
-    __syncwarp();
 
-    // O (16 x DP) += P (16 x 64) . V_tile (64 x DP)
+    // O (16 x D per m16 tile) += P (16 x 64) . V_tile (64 x D), over the n8
+    // tiles below D.
 #pragma unroll
-    for (int n = 0; n < DP / 16; ++n) {
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, pw + kk * 16, Lay::ldp);
-        wmma::load_matrix_sync(b, vs + kk * 16 * Lay::ldq + n * 16, Lay::ldq);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
+      for (int np = 0; np < NT / 2; ++np) {
+        const __nv_bfloat16* vp = vs + kk * 16 * ld + np * 16 + v_off;
+        if (np * 16 + 8 < D) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vp);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_bf16(acc[m][2 * np], pa[m][kk], b[0], b[1]);
+            mma_bf16(acc[m][2 * np + 1], pa[m][kk], b[2], b[3]);
+          }
+        } else if (np * 16 < D) {
+          uint32_t b[2];
+          ldsm_x2_t(b, vp);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_bf16(acc[m][2 * np], pa[m][kk], b[0], b[1]);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
-  lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-  const float denom = fmaxf(lsum, 1e-30f);
-  __syncwarp();
+  // Row sums over the 4 lanes of a quad, then o = acc / max(l, 1e-30).
 #pragma unroll
-  for (int n = 0; n < DP / 16; ++n)
-    wmma::store_matrix_sync(sw + n * 16, acc[n], Lay::lds, wmma::mem_row_major);
-  __syncwarp();
-  const size_t orow = head + static_cast<size_t>(q0 + warp * 16 + row) * D;
-  for (int c = half; c < D; c += 2)
-    o[orow + c] = __float2bfloat16_rn(sw[row * Lay::lds + c] / denom);
+  for (int m = 0; m < MT; ++m) {
+    float l0 = lsum[m][0], l1 = lsum[m][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float r0 = 1.f / fmaxf(l0, 1e-30f), r1 = 1.f / fmaxf(l1, 1e-30f);
+    const int row = q0 + (warp * MT + m) * 16 + lane / 4;
+    __nv_bfloat16* o0 = o + head + static_cast<size_t>(row) * D;
+    __nv_bfloat16* o1 = o0 + 8 * static_cast<size_t>(D);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + (lane % 4) * 2;
+      if (c + 1 < D && D % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
+            __floats2bfloat162_rn(acc[m][n][0] * r0, acc[m][n][1] * r0);
+        *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
+            __floats2bfloat162_rn(acc[m][n][2] * r1, acc[m][n][3] * r1);
+      } else {
+        if (c < D) {
+          o0[c] = __float2bfloat16_rn(acc[m][n][0] * r0);
+          o1[c] = __float2bfloat16_rn(acc[m][n][2] * r1);
+        }
+        if (c + 1 < D) {
+          o0[c + 1] = __float2bfloat16_rn(acc[m][n][1] * r0);
+          o1[c + 1] = __float2bfloat16_rn(acc[m][n][3] * r1);
+        }
+      }
+    }
+  }
 }
 
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int bh, int L,
-           int D, float qscale, cudaStream_t stream) {
-  const size_t bytes = Layout<DP>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_nomax_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(L / kBlockQ, bh);
-  flash_nomax_kernel<DP><<<grid, kThreads, bytes, stream>>>(
+template <int DP, int WARPS, int MT>
+int launch(const void* q, const void* k, const void* v, void* o, int bh, int L, int D,
+           float qscale, int vec, cudaStream_t stream) {
+  constexpr int block_q = WARPS * 16 * MT;
+  constexpr size_t bytes =
+      (static_cast<size_t>(block_q) * Layout<DP>::ld + 2ull * kStages * Layout<DP>::tile) *
+      sizeof(__nv_bfloat16);
+  static bool attr_set = false;  // one host thread launches; set once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_nomax_kernel<DP, WARPS, MT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const dim3 grid(L / block_q, bh);
+  flash_nomax_kernel<DP, WARPS, MT><<<grid, WARPS * 32, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, D,
-      qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, D, qscale,
+      vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int WARPS, int MT>
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int L, int D,
+             float qscale, int vec, cudaStream_t s) {
+  switch ((D + 15) / 16) {
+    case 1: return launch<16, WARPS, MT>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 2: return launch<32, WARPS, MT>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 3: return launch<48, WARPS, MT>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 4: return launch<64, WARPS, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 5: return launch<80, WARPS, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 6: return launch<96, WARPS, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+    case 7: return launch<112, WARPS, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+    default: return launch<128, WARPS, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+  }
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous bf16 (bh, L, D). L % 64 == 0, 1 <= D <= 128.
-// Returns a cudaError_t value (0 on success).
+// q, k, v, o: contiguous bf16 (bh, L, D), 1 <= D <= 128. A block has
+// `warps` warps, each with `mt` m16 tiles of q rows: (4, 1), (8, 1) or (4, 2)
+// (D > 48 takes mt = 1), so it owns 16 * warps * mt q rows, and L must be a
+// multiple of that and of 64. Returns a cudaError_t value (0 on success).
 extern "C" int anyedit_flash_nomax_bf16(const void* q, const void* k, const void* v,
                                         void* o, int bh, int L, int D, float qscale,
-                                        void* stream) {
-  if (bh < 1 || bh > 65535 || L < kBlockQ || L % kBlockQ != 0 || D < 1 || D > 128)
+                                        int warps, int mt, void* stream) {
+  if (D > 48) mt = 1;
+  if (bh < 1 || bh > 65535 || L < kBlockK || L % kBlockK != 0 || D < 1 || D > 128 ||
+      (warps != 4 && warps != 8) || (mt != 1 && mt != 2) || (warps == 8 && mt == 2) ||
+      L % (16 * warps * mt) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = D % 8 == 0 && aligned(k) && aligned(v);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, bh, L, D, qscale, s);
-    case 2: return launch<32>(q, k, v, o, bh, L, D, qscale, s);
-    case 3: return launch<48>(q, k, v, o, bh, L, D, qscale, s);
-    case 4: return launch<64>(q, k, v, o, bh, L, D, qscale, s);
-    case 5: return launch<80>(q, k, v, o, bh, L, D, qscale, s);
-    case 6: return launch<96>(q, k, v, o, bh, L, D, qscale, s);
-    case 7: return launch<112>(q, k, v, o, bh, L, D, qscale, s);
-    default: return launch<128>(q, k, v, o, bh, L, D, qscale, s);
-  }
+  if (warps == 8) return dispatch<8, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
+  return mt == 2 ? dispatch<4, 2>(q, k, v, o, bh, L, D, qscale, vec, s)
+                 : dispatch<4, 1>(q, k, v, o, bh, L, D, qscale, vec, s);
 }
 
 extern "C" const char* anyedit_cuda_error_string(int err) {

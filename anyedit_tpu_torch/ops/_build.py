@@ -26,11 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points and their argument types: every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints.
 _SIGNATURES = {
-    "anyedit_flash_nomax_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "anyedit_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "anyedit_flash_nomax_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    "anyedit_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _LL, _LL, _I,
+                           _P),
     "anyedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "anyedit_flash_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

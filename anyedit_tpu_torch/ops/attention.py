@@ -72,6 +72,17 @@ def flash_nomax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
+def _k1_blocks(l: int, d: int) -> tuple[int, int]:
+    """K1's block shape: (warps, m16 tiles of q rows per warp), 128 q rows
+    where L allows, else 64. D <= 48 takes 4 warps of 2 tiles (each K/V
+    fragment feeds two products), larger D 8 warps of 1 tile (fewer
+    registers): the faster of the two at (BH, 4096, 40) and (BH, 1024, 80)
+    on the H100 (`tools/bench_torch_ip2p.py --k1-blocks`)."""
+    if l % 128:
+        return 4, 1
+    return (4, 2) if d <= 48 else (8, 1)
+
+
 def flash_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float) -> torch.Tensor:
     """Unmasked self-attention, q/k/v: (BH, L, D) with Lq == Lkv.
@@ -100,7 +111,7 @@ def flash_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.anyedit_flash_nomax_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                        out.data_ptr(), bh, l, d,
-                                       float(scale * _LOG2E), stream)
+                                       float(scale * _LOG2E), *_k1_blocks(l, d), stream)
     _build.check("flash_nomax", err)
     flash_nomax.launches += 1
     return out

@@ -14,9 +14,50 @@ tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from anyedit_tpu_torch.ops import _build
+
+# K2's launch plan (see `_k2_plan`). The H100 has 132 SMs and 227 KB of
+# shared memory a block; a cluster of more than 8 blocks is non-portable.
+# The values were chosen on the card with `tools/bench_torch_ip2p.py
+# --k2-plans` (K2's device time over the UNet's and the VAE's norms).
+_K2_MAX_CLUSTER = 16
+_K2_SMEM_CAP = 96 * 1024           # chunk bytes kept in shared memory: two blocks an SM
+_K2_TARGET_BLOCKS = 132            # split a span until there is a block for every SM
+_K2_MIN_CHUNK_BYTES = 16 * 1024    # or until its chunks are this small
+
+
+@functools.lru_cache(maxsize=256)
+def _k2_plan(n: int, c: int, hw: int, groups: int, elem_bytes: int):
+    """K2's launch plan for x of (n, c, hw) in `elem_bytes`-wide elements:
+    (cluster, chunk, cap, smem_bytes).
+
+    Each (image, group) span of c / groups * hw elements runs on a cluster
+    of `cluster` blocks; block r takes elements [r * chunk, (r + 1) * chunk)
+    and keeps the first `cap` of them in shared memory (the rest it reads
+    again from global memory). The cluster is the smallest power of two
+    that gives a block for every SM with a chunk that fits, or that leaves
+    chunks of `_K2_MIN_CHUNK_BYTES`; at most `_K2_MAX_CLUSTER`.
+    `smem_bytes` adds 16 bytes for the chunk's 16-byte phase. Cached: the
+    models call it with a few dozen shapes on every launch (clear the cache
+    after changing the settings above)."""
+    span = c // groups * hw
+    vec = 16 // elem_bytes
+    cap = _K2_SMEM_CAP // elem_bytes
+    cluster = 1
+    while True:
+        chunk = -(-span // cluster)
+        chunk = -(-chunk // vec) * vec
+        if cluster == _K2_MAX_CLUSTER or chunk <= cap and (
+                n * groups * cluster >= _K2_TARGET_BLOCKS
+                or chunk * elem_bytes <= _K2_MIN_CHUNK_BYTES):
+            break
+        cluster *= 2
+    cap = min(chunk, cap)
+    return cluster, chunk, cap, cap * elem_bytes + 16
 
 
 def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -70,12 +111,14 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not x.is_contiguous():
         raise ValueError("group_norm: x must be contiguous NCHW")
     hw = x.numel() // (n * c)
+    cluster, chunk, cap, smem = _k2_plan(n, c, hw, num_groups, x.element_size())
     y = torch.empty_like(x)
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.anyedit_group_norm(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                  y.data_ptr(), n, c, hw, num_groups, float(eps),
-                                 int(silu), int(x.dtype == torch.bfloat16), stream)
+                                 int(silu), int(x.dtype == torch.bfloat16),
+                                 cluster, chunk, cap, smem, stream)
     _build.check("group_norm", err)
     group_norm.launches += 1
     return y

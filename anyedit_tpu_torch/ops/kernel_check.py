@@ -2,6 +2,18 @@
 
 Shared by `chip_smoke.py` and `tools/bench_torch_ip2p.py`. Every function
 here needs a CUDA device; the plain references run with TF32 off.
+
+Each `check_*` of a kernel also returns its yardsticks:
+  * `bound_ms`, `bound_by`: the least time the card could take, the larger
+    of the operations over the published dense peak for their type and the
+    bytes (each input read once, each output written once) over 3.35 TB/s
+    (NVIDIA's H100 SXM data sheet), and which of the two it is;
+  * `library_ms`, `library`, `library_kernel`: one PyTorch call that
+    computes the same function on the same inputs, its name, and the
+    kernel that took most of its device time (for attention: the backend
+    PyTorch chose); None where there is none. The port never calls it;
+  * `device_ms`, `library_device_ms`: the device time alone of the kernel
+    and of the library call, without the host's launch overhead.
 """
 
 from __future__ import annotations
@@ -34,6 +46,64 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Published dense peaks of one H100 SXM (at its 700 W limit).
+PEAK_BF16 = 989e12      # FLOP/s, tensor cores
+PEAK_FP32 = 67e12       # FLOP/s, outside the tensor cores
+PEAK_INT8 = 1979e12     # OP/s, tensor cores
+HBM_BYTES_PER_S = 3.35e12
+
+
+def roofline(ops: float, peak: float, nbytes: float) -> dict:
+    """bound_ms = max(ops / peak, bytes / HBM rate), and which one binds."""
+    ops_ms = ops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def device_profile(fn, iters: int = 10) -> tuple[float, str]:
+    """(device ms per call, name of the kernel with the most device time)
+    of `fn()`, from `torch.profiler` over `iters` calls after a warm-up.
+    Unlike `time_ms` this leaves out the host's launch overhead, which
+    bounds `time_ms` for kernels of a few microseconds; the name says which
+    backend a PyTorch call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, best, name = 0.0, -1.0, "unknown"
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        total += us
+        if us > best:
+            best, name = us, e.key
+    return total / iters / 1e3, name[:120]
+
+
+def _timings(res: dict, kernel, plain, library, iters: int) -> None:
+    """ms / plain_ms / library_ms: CUDA events around back-to-back calls;
+    device_ms / library_device_ms: device time alone (`device_profile`)."""
+    res["ms"] = time_ms(kernel, iters)
+    res["device_ms"] = device_profile(kernel, iters)[0]
+    res["plain_ms"] = time_ms(plain, iters)
+    if library is None:
+        res["library_ms"] = res["library_device_ms"] = None
+        return
+    res["library_ms"] = time_ms(library, iters)
+    res["library_device_ms"], res["library_kernel"] = device_profile(library, iters)
+
+
+def _sdpa(q, k, v, scale: float):
+    """`F.scaled_dot_product_attention` on (1, BH, L, D) views of q, k, v."""
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+
 def _errors(out: torch.Tensor, ref: torch.Tensor) -> dict:
     err = (out.float() - ref.float()).abs()
     return {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
@@ -50,9 +120,11 @@ def check_flash_nomax(bh: int, l: int, d: int, device, seed: int = 0,
     scale = 1.0 / math.sqrt(d)
     out = flash_nomax(q, k, v, scale)
     res = _errors(out, flash_nomax_plain(q, k, v, scale))
-    res["ms"] = time_ms(lambda: flash_nomax(q, k, v, scale), iters)
-    res["plain_ms"] = time_ms(lambda: flash_nomax_plain(q, k, v, scale), iters)
+    _timings(res, lambda: flash_nomax(q, k, v, scale),
+             lambda: flash_nomax_plain(q, k, v, scale), _sdpa(q, k, v, scale), iters)
+    res["library"] = "F.scaled_dot_product_attention"
     res["tflops"] = 4 * bh * l * l * d / res["ms"] * 1e-9
+    res.update(roofline(4 * bh * l * l * d, PEAK_BF16, 4 * q.numel() * 2))
     return res
 
 
@@ -69,7 +141,8 @@ def check_group_norm(shape, silu: bool, device, dtype=torch.bfloat16,
                      magnitude: float = 0.0, seed: int = 1, iters: int = 10) -> dict:
     """K2 vs its plain version on one input of `shape` (NCHW), 32 groups.
     `magnitude` > 0 adds a per-channel offset near it with spread 1e-3 of it
-    (the |mean| / std = 1e3 cancellation case)."""
+    (the |mean| / std = 1e3 cancellation case). `gbps` counts one read and
+    one write of x over the kernel's time."""
     g = torch.Generator(device=device).manual_seed(seed)
     c = shape[1]
     x = torch.randn(shape, generator=g, device=device)
@@ -82,10 +155,19 @@ def check_group_norm(shape, silu: bool, device, dtype=torch.bfloat16,
     bias = torch.randn(c, generator=g, device=device) * 0.1
     out = group_norm(x, scale, bias, 32, silu=silu)
     res = _errors(out, group_norm_plain(x, scale, bias, 32, silu=silu))
-    res["ms"] = time_ms(lambda: group_norm(x, scale, bias, 32, silu=silu), iters)
-    res["plain_ms"] = time_ms(lambda: group_norm_plain(x, scale, bias, 32, silu=silu),
-                              iters)
-    res["gbps"] = 4 * x.numel() * x.element_size() / res["ms"] * 1e-6
+    ws, bs = scale.to(dtype), bias.to(dtype)
+    if silu:
+        lib = lambda: F.silu(F.group_norm(x, 32, ws, bs, 1e-5))
+    else:
+        lib = lambda: F.group_norm(x, 32, ws, bs, 1e-5)
+    _timings(res, lambda: group_norm(x, scale, bias, 32, silu=silu),
+             lambda: group_norm_plain(x, scale, bias, 32, silu=silu), lib, iters)
+    res["library"] = "F.group_norm, then F.silu (two calls)" if silu else "F.group_norm"
+    res["gbps"] = 2 * x.numel() * x.element_size() / res["device_ms"] * 1e-6
+    # about 10 fp32 operations an element (two statistics passes, the
+    # affine, SiLU); the bytes bind by far
+    res.update(roofline(10 * x.numel(), PEAK_FP32,
+                        2 * x.numel() * x.element_size() + 2 * c * 4))
     return res
 
 
@@ -115,9 +197,14 @@ def check_flash_attention(bh: int, lq: int, lkv: int, d: int, device,
     ref = flash_attention_plain(q, k, v, scale)
     res = _errors(out, ref)
     res["bf16_ulps"] = _bf16_ulps(out, ref)
-    res["ms"] = time_ms(lambda: flash_attention(q, k, v, scale), iters)
-    res["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, scale), iters)
+    _timings(res, lambda: flash_attention(q, k, v, scale),
+             lambda: flash_attention_plain(q, k, v, scale),
+             _sdpa(*(t.float() for t in (q, k, v)), scale), iters)
+    res["library"] = "F.scaled_dot_product_attention on fp32 copies"
     res["tflops"] = 4 * bh * lq * lkv * d / res["ms"] * 1e-9
+    # fp32 FFMA contract: fp32's 67 TFLOP/s is the peak that applies
+    res.update(roofline(4 * bh * lq * lkv * d, PEAK_FP32,
+                        (2 * q.numel() + 2 * k.numel()) * q.element_size()))
     return res
 
 
@@ -135,9 +222,12 @@ def check_flash_int8(bh: int, l: int, d: int, device, dtype=torch.bfloat16,
     res = _errors(out, flash_int8_plain(q, k, v, scale))
     exact = sdpa(*(t.float()[:, None] for t in (q, k, v)), scale=scale)[:, 0]
     res["rel_l2_sdpa"] = float((out.float() - exact).norm() / exact.norm())
-    res["ms"] = time_ms(lambda: flash_int8(q, k, v, scale), iters)
-    res["plain_ms"] = time_ms(lambda: flash_int8_plain(q, k, v, scale), iters)
+    _timings(res, lambda: flash_int8(q, k, v, scale),
+             lambda: flash_int8_plain(q, k, v, scale), None, iters)
+    res["library"] = ("none: no PyTorch call computes attention with the /127 "
+                      "probability grid and int8 products")
     res["tops"] = 4 * bh * l * l * d / res["ms"] * 1e-9
+    res.update(roofline(4 * bh * l * l * d, PEAK_INT8, 4 * q.numel() * q.element_size()))
     return res
 
 

@@ -69,13 +69,15 @@ def tiny_zoo_config() -> ZooConfig:
 class ModelZoo:
     """Builds the slot's models lazily on `device`.
 
+    device: the card ("cuda") unless the caller asks for another; building
+    a model on "cuda" raises where CUDA is absent (no fallback to the CPU).
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
     "unet_ip2p", "vae" and "clip_text"; a missing slot gets a seeded init.
     Tokens come from the hash tokenizer the JAX zoo uses with no weights
     dir."""
 
-    def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cpu",
+    def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
                  seed: int = 0, params: Optional[Mapping[str, Any]] = None):
         self.cfg = cfg or ZooConfig()
         self.device = torch.device(device)
@@ -86,6 +88,10 @@ class ModelZoo:
 
     def _get(self, name: str, build: Callable[[], Any]):
         if name not in self._cache:
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"ModelZoo: device {self.device} requested but "
+                                   "CUDA is not available; pass device='cpu' to "
+                                   "run on the CPU")
             self._cache[name] = build()
         return self._cache[name]
 

@@ -9,7 +9,9 @@ Phases, each printing its own line with the seconds it took:
      nvcc per source, in parallel);
   3. kernels: K1 (flash_nomax), K2 (GroupNorm+SiLU), K3 (fp32 online-softmax
      flash) and K4 (int8 flash) against their plain PyTorch versions at the
-     paths' shapes, TF32 off; K4 also against fp32 sdpa;
+     paths' shapes, TF32 off; K4 also against fp32 sdpa. Each line also
+     carries the kernel's bound (roofline) and the time of the one PyTorch
+     call that computes the same function, where there is one;
   4. int8: the W8A8 int32 contraction (int8 im2col + torch._int_mm) equals
      a float64 contraction bit for bit, for a full-width conv and dense;
   5. reference: the slice at the tiny config in bf16 on the card against
@@ -88,6 +90,15 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def yardsticks(r: dict) -> str:
+    """The bound and the library call of one kernel row, for its line."""
+    lib = "none" if r["library_ms"] is None else (
+        f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms, "
+        f"top kernel {r['library_kernel']}")
+    return (f" | device {r['device_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) | library {lib} [{r['library']}]")
+
+
 def check_kernels(dev):
     from anyedit_tpu_torch.ops import kernel_check as kc
     import torch
@@ -98,7 +109,8 @@ def check_kernels(dev):
     for shape, r in k1:
         print(f"K1 flash_nomax {shape}: max {r['max_abs_err']:.3e} mean "
               f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
-              f"({r['tflops']:.1f} TFLOP/s) plain {r['plain_ms']:.4f} ms", flush=True)
+              f"({r['tflops']:.1f} TFLOP/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
+              flush=True)
         require(r["finite"] and r["mean_abs_err"] <= 2e-3 and r["max_abs_err"] <= 3e-2,
                 f"K1 {shape} agrees with its plain version")
     clamp = kc.check_flash_nomax_clamp(dev)
@@ -118,7 +130,8 @@ def check_kernels(dev):
     for shape, r in k2:
         print(f"K2 group_norm {shape}: max {r['max_abs_err']:.3e} mean "
               f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
-              f"({r['gbps']:.0f} GB/s) plain {r['plain_ms']:.4f} ms", flush=True)
+              f"({r['gbps']:.0f} GB/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
+              flush=True)
         require(r["finite"] and r["max_abs_err"] <= 5e-2 and r["mean_abs_err"] <= 2e-3,
                 f"K2 {shape} agrees with its plain version")
 
@@ -130,7 +143,8 @@ def check_kernels(dev):
     for shape, r in k3:
         print(f"K3 flash_attention {shape}: max {r['max_abs_err']:.3e} "
               f"({r['bf16_ulps']:.2f} bf16 roundings) | kernel {r['ms']:.4f} ms "
-              f"({r['tflops']:.2f} TFLOP/s) plain {r['plain_ms']:.4f} ms", flush=True)
+              f"({r['tflops']:.2f} TFLOP/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
+              flush=True)
         ok = r["max_abs_err"] <= 2e-5 if "fp32" in shape else r["bf16_ulps"] <= 1.0
         require(r["finite"] and ok, f"K3 {shape} agrees with its plain version")
 
@@ -144,7 +158,7 @@ def check_kernels(dev):
         print(f"K4 flash_int8 {shape}: max {r['max_abs_err']:.3e} mean "
               f"{r['mean_abs_err']:.3e}, rel-L2 to fp32 sdpa {r['rel_l2_sdpa']:.4f} "
               f"(bound {bound}) | kernel {r['ms']:.4f} ms ({r['tops']:.2f} TOP/s) "
-              f"plain {r['plain_ms']:.4f} ms", flush=True)
+              f"plain {r['plain_ms']:.4f} ms{yardsticks(r)}", flush=True)
         require(r["finite"] and r["mean_abs_err"] <= 1e-4 and r["max_abs_err"] <= 3e-2,
                 f"K4 {shape} agrees with its plain version")
         require(r["rel_l2_sdpa"] < bound, f"K4 {shape} within {bound} of fp32 sdpa")
@@ -437,7 +451,13 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for _, r in rows),
-                "ms": rows[0][1]["ms"], "plain_ms": rows[0][1]["plain_ms"]}
+                "ms": rows[0][1]["ms"], "plain_ms": rows[0][1]["plain_ms"],
+                "bound_ms": rows[0][1]["bound_ms"], "bound_by": rows[0][1]["bound_by"],
+                "library_ms": rows[0][1]["library_ms"],
+                "library": rows[0][1]["library"],
+                "library_kernel": rows[0][1].get("library_kernel"), "shape": rows[0][0],
+                "device_ms": rows[0][1]["device_ms"],
+                "library_device_ms": rows[0][1]["library_device_ms"]}
     kernels = [
         entry("flash_nomax", "anyedit_tpu_torch/csrc/flash_nomax.cu",
               "anyedit_tpu/ops/attention.py:153", launches["flash_nomax"], k1),

@@ -93,13 +93,59 @@ def test_wrappers_raise_off_cpu_and_cuda(op):
             getattr(tattn, op)(x, x, x, 1.0)
 
 
+# Every GroupNorm shape of the main path (NCHW): the SD1.5 IP2P UNet at
+# batch 3 (one request, 3-way CFG) and 24 (the bench's batch 8), and the SD
+# VAE's encoder and decoder at 512 px.
+UNET_NORMS = [(320, 32, 32), (320, 64, 64), (640, 16, 16), (640, 32, 32),
+              (640, 64, 64), (960, 32, 32), (960, 64, 64), (1280, 8, 8),
+              (1280, 16, 16), (1280, 32, 32), (1920, 16, 16), (1920, 32, 32),
+              (2560, 8, 8), (2560, 16, 16)]
+VAE_NORMS = [(128, 256, 256), (128, 512, 512), (256, 128, 128), (256, 256, 256),
+             (256, 512, 512), (512, 64, 64), (512, 128, 128), (512, 256, 256)]
+MAIN_PATH_NORMS = ([(b,) + s for b in (3, 24) for s in UNET_NORMS]
+                   + [(1,) + s for s in VAE_NORMS])
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH_NORMS, ids=str)
+def test_k2_plan_covers_every_span(shape):
+    """K2's launch plan at every main-path norm, in bf16 and fp32: the
+    cluster's chunks cover each span exactly (no gap, no empty block), the
+    chunks keep 16-byte steps, the shared memory stays within a block's
+    227 KB, the cluster within 16 blocks, and the grid divides into whole
+    clusters."""
+    n, c, h, w = shape
+    span = c // 32 * h * w
+    for eb in (2, 4):
+        cluster, chunk, cap, smem = tgn._k2_plan(n, c, h * w, 32, eb)
+        assert cluster in (1, 2, 4, 8, 16)
+        assert cluster * chunk >= span > (cluster - 1) * chunk
+        assert chunk * eb % 16 == 0 and 0 < cap <= chunk
+        assert cap * eb + 16 <= smem <= 232448 - 1024
+        assert n * 32 * cluster % cluster == 0
+
+
+@pytest.mark.parametrize("l", [64, 128, 192, 1024, 1536, 4096])
+@pytest.mark.parametrize("d", [1, 36, 40, 48, 64, 80, 96, 128])
+def test_k1_blocks_divide_l(l, d):
+    """K1's block shape is one the kernel takes, and its q rows divide L."""
+    warps, tiles = tattn._k1_blocks(l, d)
+    assert (warps, tiles) in ((4, 1), (8, 1), (4, 2)) and (tiles == 1 or d <= 48)
+    assert l % (16 * warps * tiles) == 0
+
+
 # ---- the hand kernels on the card ---------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,l,d", [(16, 4096, 40), (16, 1024, 80), (2, 128, 128)])
+@pytest.mark.parametrize("bh,l,d", [
+    (16, 4096, 40), (16, 1024, 80), (2, 128, 128),
+    (4, 64, 40), (4, 1024, 40), (4, 64, 80), (4, 1024, 80),
+    (4, 64, 36), (4, 1024, 36), (4, 64, 128), (4, 1024, 128)])
 def test_flash_nomax_kernel_matches_plain(cuda, bh, l, d):
     """K1 vs its plain version on the same bf16 inputs: mean-abs <= 2e-3,
-    max-abs <= 3e-2 (bf16 output quanta; fp32 sums in another order)."""
+    max-abs <= 3e-2 (bf16 output quanta; fp32 sums in another order).
+    L = 64 takes 64-row blocks, L = 1024 128-row ones; D = 36 takes the
+    plain-load path (rows are not whole 16-byte units) and D = 40 the k8
+    tail of QK^T."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(bh, l, d, generator=g, device=cuda).to(torch.bfloat16)
                for _ in range(3))
@@ -109,6 +155,55 @@ def test_flash_nomax_kernel_matches_plain(cuda, bh, l, d):
     assert tattn.flash_nomax.launches == before + 1
     err = (out.float() - tattn.flash_nomax_plain(q, k, v, 1.0 / math.sqrt(d)).float()).abs()
     assert float(err.mean()) <= 2e-3 and float(err.max()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_flash_nomax_kernel_clamp(cuda):
+    """Logits far past the clamp saturate to uniform weights on the card:
+    the output equals v (= 1) within 1e-2 (chip_smoke.py's bound)."""
+    r = kc.check_flash_nomax_clamp(cuda)
+    assert r["finite"] and r["max_abs_err"] <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,silu,dtype,magnitude,reread", [
+    ((2, 64, 7, 9), True, torch.bfloat16, 0.0, False),
+    ((2, 64, 7, 9), True, torch.float32, 0.0, False),
+    ((1, 64, 99, 101), True, torch.bfloat16, 0.0, False),
+    ((1, 64, 99, 101), False, torch.float32, 0.0, False),
+    ((1, 128, 512, 512), True, torch.bfloat16, 0.0, True),
+    ((1, 128, 512, 512), False, torch.float32, 0.0, True),
+    ((1, 128, 511, 513), True, torch.bfloat16, 0.0, True),
+    ((2, 320, 16, 16), True, torch.float32, 100.0, False),
+    ((1, 128, 512, 512), True, torch.float32, 100.0, True)])
+def test_group_norm_kernel_regimes(cuda, shape, silu, dtype, magnitude, reread):
+    """K2 vs its plain version where H*W is not a multiple of 8 (scalar
+    head and tail), where a span is split over a cluster with chunks that
+    start off 16-byte boundaries, where each chunk stays in shared memory
+    and where part of it is read again from global memory (`reread`; with
+    H*W odd at (1, 128, 511, 513)), in
+    bf16 and fp32, and at |mean| / std = 1e3: max-abs <= 5e-2, mean-abs <=
+    2e-3 (chip_smoke.py's bound); 1e-5 max-abs in fp32 without the offset."""
+    n, c = shape[:2]
+    hw = shape[2] * shape[3]
+    _, chunk, cap, _ = tgn._k2_plan(n, c, hw, 32, torch.empty((), dtype=dtype).element_size())
+    assert (chunk > cap) == reread
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=cuda)
+    if magnitude:
+        x = magnitude + 1e-4 * magnitude * torch.randn((1, c, 1, 1), generator=g,
+                                                       device=cuda) + 1e-3 * magnitude * x
+    x = x.to(dtype)
+    scale = torch.randn(c, generator=g, device=cuda) * 0.1 + 1
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    out = tgn.group_norm(x, scale, bias, 32, silu=silu)
+    torch.cuda.synchronize()
+    err = (out.float() - tgn.group_norm_plain(x, scale, bias, 32, silu=silu).float()).abs()
+    assert bool(torch.isfinite(out).all())
+    if dtype == torch.float32 and not magnitude:
+        assert float(err.max()) <= 1e-5
+    else:
+        assert float(err.max()) <= 5e-2 and float(err.mean()) <= 2e-3
 
 
 @pytest.mark.cuda

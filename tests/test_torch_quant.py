@@ -201,7 +201,7 @@ def test_zoo_quant_ip2p_edit_matches_jax(trees, tmp_path):
                         text=full.text, quant_ip2p=True)
     jzoo = JaxModelZoo(jcfg, weights_dir=tmp_path, allow_fallback_tokenizers=True)
     zoo = ModelZoo(dataclasses.replace(tiny_zoo_config(), quant_ip2p=True),
-                   params=params)
+                   device="cpu", params=params)
     unet, _ = zoo._ip2p_core()
     assert unet.cfg.quant and unet.down_blocks[0].resnets[0].conv1.weight.dtype == torch.int8
 

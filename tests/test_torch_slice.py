@@ -133,7 +133,7 @@ def zoo_pair(params, tmp_path_factory):
                         vae=full.vae, text=full.text)
     assert (jcfg.ip2p_unet, jcfg.vae, jcfg.text) == (JAX_UNET, JAX_VAE, JAX_TEXT)
     jzoo = JaxModelZoo(jcfg, weights_dir=wdir, allow_fallback_tokenizers=True)
-    return jzoo, ModelZoo(tiny_zoo_config(), params=params)
+    return jzoo, ModelZoo(tiny_zoo_config(), device="cpu", params=params)
 
 
 def test_zoo_ip2p_slot_matches(zoo_pair):

@@ -3,8 +3,11 @@
     python3 tools/bench_torch_ip2p.py              # pairs/hour, one JSON line
     python3 tools/bench_torch_ip2p.py --int8       # the same with the W8A8 UNet
     python3 tools/bench_torch_ip2p.py --kernels    # K1-K4 vs plain, JSON lines
+    python3 tools/bench_torch_ip2p.py --k1-blocks  # K1 at each block shape
+    python3 tools/bench_torch_ip2p.py --k2-plans   # K2 under each launch plan
     python3 tools/bench_torch_ip2p.py --profile    # device time by kernel class
     python3 tools/bench_torch_ip2p.py --profile --int8
+    python3 tools/bench_torch_ip2p.py --latency [--int8]  # s per 100-step request
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -13,8 +16,9 @@ weights). `--int8` mirrors `bench.py --int8`: the UNet is W8A8, quantized
 from the float init as the zoo does (ops/quant.py), and the VAE stays bf16.
 The time is the best of 3 runs after one warm-up run, host clock around
 work that ends in a device synchronise. `--kernels` times the hand kernels
-against their plain PyTorch versions at the paths' shapes. Every line
-names the card and its power limit.
+against their plain PyTorch versions at the paths' shapes, beside each
+kernel's bound and the one PyTorch call that computes the same function
+(`ops/kernel_check.py`). Every line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -117,11 +121,166 @@ def bench_pairs_per_hour(dev, n: int, int8: bool = False) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def bench_latency(dev, int8: bool = False, requests: int = 3) -> dict:
+    """The latency cell: seconds per 100-step `ModelZoo.ip2p()` request on
+    one 512x512 image (s_txt 8.0, s_img 0.9, as `chip_smoke.py` serves it),
+    `requests` of them after one warm-up request. Beside them, the UNet call
+    at batch 3 on the card (CUDA events over back-to-back calls) and on the
+    host alone (the time to enqueue one call onto an idle device: where it
+    is near the event time, the host bounds the cell), and the host's
+    1-minute load average before and after."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    load0 = os.getloadavg()[0]
+    zoo = ModelZoo(ZooConfig(quant_ip2p=int8), dev, seed=0)
+    edit = zoo.ip2p()
+    img = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), np.uint8)
+    seconds = []
+    for i in range(requests + 1):
+        t0 = time.perf_counter()
+        out = edit(img, "make the sky a deep orange", None, steps=100, s_txt=8.0,
+                   s_img=0.9, seed=i)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    if out.shape != img.shape or out.dtype != np.uint8:
+        raise RuntimeError(f"ip2p() returned {out.shape} {out.dtype}")
+
+    unet, _ = zoo._ip2p_core()
+    c = zoo.cfg
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(3, hw, hw, c.ip2p_unet.in_channels, generator=g, device=dev)
+    t = torch.full((3,), 501, device=dev)
+    ctx = torch.randn(3, 77, c.ip2p_unet.context_dim, generator=g, device=dev)
+    host = []
+    with torch.inference_mode():
+        step_ms = time_ms(lambda: unet(x, t, ctx), iters=20)
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unet(x, t, ctx)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    mode = "W8A8" if int8 else "bf16"
+    return {"metric": f"seconds per 100-step ip2p() request (512x512, {mode}, "
+                      "PyTorch port)",
+            "value": statistics.median(seconds[1:]), "unit": "s",
+            "seconds": seconds[1:], "warmup_s": seconds[0],
+            "unet_b3_ms": step_ms, "unet_b3_host_ms": statistics.median(host),
+            "loadavg_1min": [load0, os.getloadavg()[0]], "cpus": os.cpu_count()}
+
+
+# K1 and K2 at the main path's shapes: the UNet at batch 3 (one request,
+# B*H = 24) and 24 (the bench's batch 8, B*H = 192); the VAE at n = 1.
+K1_SHAPES = ((24, 4096, 40), (24, 1024, 80), (192, 4096, 40), (192, 1024, 80))
+K2_SHAPES = (((3, 320, 64, 64), True), ((3, 640, 32, 32), False),
+             ((3, 1280, 8, 8), True), ((3, 2560, 16, 16), True),
+             ((24, 320, 64, 64), True), ((24, 640, 32, 32), False),
+             ((24, 1280, 8, 8), True), ((1, 128, 512, 512), True),
+             ((1, 256, 512, 512), True), ((1, 256, 256, 256), True),
+             ((1, 512, 64, 64), True))
+
+
+K1_BLOCKS = ((4, 1), (8, 1), (4, 2))
+
+
+def bench_k1_blocks(dev) -> list[dict]:
+    """K1 at its main-path shapes with each block shape it takes (warps,
+    m16 tiles of q rows a warp), in turns: the list, then the list
+    reversed."""
+    import torch
+    from anyedit_tpu_torch.ops import attention
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    chosen = attention._k1_blocks
+    g = torch.Generator(device=dev).manual_seed(0)
+    inputs = {s: [torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(3)] for s in K1_SHAPES}
+    rows = []
+    try:
+        for block in K1_BLOCKS + K1_BLOCKS[::-1]:
+            attention._k1_blocks = lambda l, d, b=block: b
+            for shape, (q, k, v) in inputs.items():
+                ms = time_ms(lambda: attention.flash_nomax(q, k, v, shape[2] ** -0.5),
+                             iters=20)
+                rows.append({"kernel": "flash_nomax", "warps": block[0],
+                             "tiles_per_warp": block[1], "shape": list(shape), "ms": ms})
+    finally:
+        attention._k1_blocks = chosen
+    return rows
+
+
+# K2 launch plans to compare: (target blocks, min chunk KB, shared-memory cap KB)
+K2_PLANS = ((132, 16, 96), (264, 16, 96), (132, 32, 96), (132, 16, 48), (132, 16, 200))
+
+
+def bench_k2_plans(dev) -> list[dict]:
+    """K2's device time in one full-width UNet call at batch 3 and 24 and in
+    one VAE encode + decode (n = 1), under each launch plan of `K2_PLANS`
+    (the settings of `ops/groupnorm.py`), in turns: the list, then the list
+    reversed. From `torch.profiler`: the kernels named group_norm."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET
+    from anyedit_tpu_torch.models.vae import SD_VAE, AutoencoderKL
+    from anyedit_tpu_torch.ops import groupnorm
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    unet = build_unet(dev, False)
+    vae = seeded_init_(AutoencoderKL(SD_VAE, device=dev), 1).eval()
+    hw = SIZE // 8
+    work = {}
+    for b in (3, 3 * BATCH):
+        x = torch.randn(b, hw, hw, SD15_IP2P_UNET.in_channels, device=dev)
+        t = torch.full((b,), 501, device=dev)
+        ctx = torch.randn(b, 77, SD15_IP2P_UNET.context_dim, device=dev,
+                          dtype=torch.bfloat16)
+        work[f"unet batch {b}"] = lambda x=x, t=t, ctx=ctx: unet(x, t, ctx)
+    px = torch.randn(1, SIZE, SIZE, 3, device=dev, dtype=torch.bfloat16)
+    z = torch.randn(1, hw, hw, SD_VAE.latent_channels, device=dev)
+    work["vae encode + decode n=1"] = lambda: (vae.encode(px), vae.decode(z))
+
+    saved = (groupnorm._K2_TARGET_BLOCKS, groupnorm._K2_MIN_CHUNK_BYTES,
+             groupnorm._K2_SMEM_CAP)
+    rows = []
+    try:
+        for target, min_kb, cap_kb in K2_PLANS + K2_PLANS[::-1]:
+            groupnorm._K2_TARGET_BLOCKS = target
+            groupnorm._K2_MIN_CHUNK_BYTES = min_kb * 1024
+            groupnorm._K2_SMEM_CAP = cap_kb * 1024
+            groupnorm._k2_plan.cache_clear()
+            row = {"kernel": "group_norm", "target_blocks": target,
+                   "min_chunk_kb": min_kb, "smem_cap_kb": cap_kb}
+            for label, fn in work.items():
+                with torch.inference_mode():
+                    fn()
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        fn()
+                        torch.cuda.synchronize()
+                us = 0.0
+                for e in prof.key_averages():
+                    if "group_norm" in e.key:
+                        t_us = getattr(e, "self_device_time_total", None)
+                        us += e.self_cuda_time_total if t_us is None else t_us
+                row[f"{label} ms"] = us / 1e3
+            rows.append(row)
+    finally:
+        (groupnorm._K2_TARGET_BLOCKS, groupnorm._K2_MIN_CHUNK_BYTES,
+         groupnorm._K2_SMEM_CAP) = saved
+        groupnorm._k2_plan.cache_clear()
+    return rows
+
+
 def bench_kernels(dev) -> list[dict]:
     """K1 and K2 against their plain versions at the main path's shapes
-    (n = 2 images: UNet batch 6, so B*H = 48; VAE at n = 1); K3 and K4 at
-    their paths' shapes (one image: B*H = 24), and the W8A8 int8
-    contraction."""
+    (`K1_SHAPES`, `K2_SHAPES`); K3 and K4 at their paths' shapes (one
+    image: B*H = 24), and the W8A8 int8 contraction."""
     import torch
     from anyedit_tpu_torch.ops import kernel_check as kc
 
@@ -136,13 +295,10 @@ def bench_kernels(dev) -> list[dict]:
         rows.append({"kernel": "flash_int8", "shape": [bh, l, d], **r})
     for kind in ("conv", "dense"):
         rows.append({"kernel": f"int8 {kind}", **kc.check_int8_contraction(kind, dev)})
-    for bh, l, d in ((48, 4096, 40), (48, 1024, 80)):
+    for bh, l, d in K1_SHAPES:
         r = kc.check_flash_nomax(bh, l, d, dev)
         rows.append({"kernel": "flash_nomax", "shape": [bh, l, d], **r})
-    for shape, silu in (((6, 320, 64, 64), True), ((6, 640, 64, 64), True),
-                        ((6, 640, 32, 32), False), ((6, 1280, 16, 16), True),
-                        ((6, 2560, 8, 8), True), ((1, 128, 512, 512), True),
-                        ((1, 256, 256, 256), True), ((1, 512, 64, 64), True)):
+    for shape, silu in K2_SHAPES:
         r = kc.check_group_norm(shape, silu, dev, dtype=torch.bfloat16)
         rows.append({"kernel": "group_norm", "shape": list(shape), "silu": silu, **r})
     return rows
@@ -234,13 +390,19 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--kernels", action="store_true",
                       help="time K1-K4 against their plain versions instead")
+    mode.add_argument("--k1-blocks", action="store_true",
+                      help="time K1 at each block shape it takes instead")
+    mode.add_argument("--k2-plans", action="store_true",
+                      help="K2's device time in the UNet and VAE per launch plan instead")
     mode.add_argument("--profile", action="store_true",
                       help="device time by kernel class for the UNet and VAE instead")
+    mode.add_argument("--latency", action="store_true",
+                      help="seconds per 100-step ip2p() request instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
-    if args.int8 and args.kernels:
-        ap.error("--int8 applies to the bench and --profile")
+    if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans):
+        ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -250,8 +412,14 @@ def main() -> int:
     device = card()
     if args.kernels:
         rows = bench_kernels(dev)
+    elif args.k1_blocks:
+        rows = bench_k1_blocks(dev)
+    elif args.k2_plans:
+        rows = bench_k2_plans(dev)
     elif args.profile:
         rows = profile_breakdown(dev, args.int8)
+    elif args.latency:
+        rows = [bench_latency(dev, args.int8)]
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
