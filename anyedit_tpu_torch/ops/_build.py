@@ -33,8 +33,9 @@ _SIGNATURES = {
     "anyedit_flash_nomax_bf16": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     "anyedit_group_norm": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _LL, _LL, _I,
                            _P),
-    "anyedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    "anyedit_flash_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "anyedit_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+    "anyedit_k4_quantize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "anyedit_flash_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -53,11 +54,12 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into one shared library, unless a build of the same
-    sources and flags exists. Returns the library's path; the compiler's
-    output (registers, shared memory, spills) is kept beside it as `.log`."""
+    sources, headers (csrc/*.cuh) and flags exists. Returns the library's
+    path; the compiler's output (registers, shared memory, spills) is kept
+    beside it as `.log`."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib = BUILD_DIR / f"libanyedit_kernels_{digest.hexdigest()[:16]}.so"

@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from anyedit_tpu_torch.ops import _build
 from anyedit_tpu_torch.ops.quant import absmax_scale, quantize_int8
@@ -35,9 +36,7 @@ _NOMAX_CLAMP = 80.0
 _K1_BLOCK = 64
 _K3_MAX_D = 256
 _K4_MAX_D = 128
-# K4's key tile. p8 is rounded against the running max of its tile, so the
-# plain version walks the same tiles as the kernel.
-_K4_BLOCK_K = 64
+_K4_TILE = 64   # K4's key tile: its blocks are whole tiles
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -145,6 +144,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+def _k3_warps(d: int) -> int:
+    """K3's warps a block, each owning 16 q rows: 8 up to D = 128, 4 above
+    (more warps share each K/V tile; at D = 160 eight hold too many
+    registers). The fastest in device time at 6 of the UNet's 8 K3 shapes,
+    and within 0.0003 ms of it at the other two, on the H100
+    (`tools/bench_torch_ip2p.py --k34-blocks`; PERF.md)."""
+    return 8 if d <= 128 else 4
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, kv_len: int | None = None) -> torch.Tensor:
     """Online-softmax attention in fp32, q: (BH, Lq, D), k/v: (BH, Lkv, D),
@@ -169,7 +177,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.library().anyedit_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, lq, lkv,
-        kv_len, d, float(scale), int(q.dtype == torch.bfloat16), stream)
+        kv_len, d, float(scale), int(q.dtype == torch.bfloat16),
+        _k3_warps(d), stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out
@@ -187,10 +196,13 @@ def _quantize_kv(k: torch.Tensor, v: torch.Tensor):
 
 
 def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, kv_len: int | None = None) -> torch.Tensor:
-    """K4's arithmetic in plain PyTorch, in the kernel's order and over its
-    64-key tiles. q, k, v: (BH, L, D) float. The int8 products are taken in
-    float64, which is exact for them."""
+                     scale: float, kv_len: int | None = None,
+                     block_k: int = 512) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch, in the JAX kernel's order over its
+    key blocks [b * block_k, (b + 1) * block_k) cut at kv_len. Each block
+    rounds p8 against the running max taken over the whole block and adds
+    its P.V as one int32 product. q, k, v: (BH, L, D) float. The int8
+    products are taken in float64, which is exact for them."""
     kv_len = k.shape[1] if kv_len is None else kv_len
     k8, v8, sk, sv = _quantize_kv(k, v)
     qf = q.float()
@@ -200,15 +212,12 @@ def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros_like(qf)
     m = torch.full_like(sq, -math.inf)
     l = torch.zeros_like(sq)
-    for k0 in range(0, kv_len, _K4_BLOCK_K):
-        kt = k8[:, k0:k0 + _K4_BLOCK_K].double()
-        vt = v8[:, k0:k0 + _K4_BLOCK_K].double()
-        s = torch.matmul(q8, kt.transpose(-1, -2)).float() * row_f
-        col = torch.arange(k0, k0 + kt.shape[1], device=q.device)
-        s = s.masked_fill(col >= kv_len, -math.inf)
+    for k0 in range(0, kv_len, block_k):
+        k1 = min(k0 + block_k, kv_len)
+        s = torch.matmul(q8, k8[:, k0:k1].double().transpose(-1, -2)).float() * row_f
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
-        pv = torch.matmul(torch.round(p * 127.0).double(), vt).float()
+        pv = torch.matmul(torch.round(p * 127.0).double(), v8[:, k0:k1].double()).float()
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + pv
@@ -217,36 +226,95 @@ def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _k4_key_order() -> list[int]:
+    """K4's key order inside each 32-key group of v8ᵀ: position p holds key
+    16 h + 2 t + 8 (i // 2) + i % 2, for p = 16 h + 4 t + i (h < 2, t < 4,
+    i < 4). A lane's m16n8 accumulators hold keys 2t, 2t + 1, 8 + 2t, 9 + 2t
+    of each 16, which this order makes the 4 adjacent keys of an int8 A
+    fragment register, so P is packed in registers without a shuffle. With
+    a key written 16 h + 8 a + 2 t + b, it is the permutation (h, a, t, b)
+    -> (h, t, a, b) of its digits, which `k4_layout` applies as a view."""
+    return [16 * (p // 16) + 2 * (p % 16 // 4) + 8 * (p % 4 // 2) + p % 2
+            for p in range(32)]
+
+
+def k4_layout(k8: torch.Tensor, v8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(BH, L, D) int8 k8, v8 -> K4's operands, as its quantization kernel
+    writes them on the card (this is their reference): k8 zero-padded to
+    (BH, LP, DP), and v8 zero-padded and transposed to (BH, DP, LP) with
+    the keys of each 32-key group in `_k4_key_order`; DP = round16(D),
+    LP = round64(L). A zero column changes no product and no absmax, and a
+    zero key past L is masked, so the pads are exact. The int8 B operand of
+    `mma.sync` is k-major, so P.V needs V with keys along its rows."""
+    bh, l, d = k8.shape
+    dp, lp = -(-d // 16) * 16, -(-l // _K4_TILE) * _K4_TILE
+    pad = (0, dp - d, 0, lp - l)
+    vt = F.pad(v8, pad).view(bh, lp // 32, 2, 2, 4, 2, dp)  # keys as (h, a, t, b)
+    return F.pad(k8, pad), vt.permute(0, 6, 1, 2, 4, 3, 5).contiguous().view(bh, dp, lp)
+
+
+def _k4_warps(bh: int, l: int) -> int:
+    """K4's warps a block (16 q rows each): 4 where that gives two blocks
+    for each of the H100's 132 SMs, else fewer. On the H100 4 warps are
+    the fastest at (24, 1024, 80) and within 3 % of 8 at (24, 4096, 40)
+    (`tools/bench_torch_ip2p.py --k34-blocks`; PERF.md)."""
+    for warps in (4, 2):
+        if bh * -(-l // (16 * warps)) >= 264:
+            return warps
+    return 1
+
+
 def flash_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-               kv_len: int | None = None) -> torch.Tensor:
-    """INT8-product online-softmax attention, q/k/v: (BH, L, D) float.
-    k is quantized per tensor and v per channel here; q per row in the
-    kernel. Keys at index >= kv_len (default L) are masked.
+               kv_len: int | None = None, block_k: int = 512) -> torch.Tensor:
+    """INT8-product online-softmax attention, q/k/v: (BH, L, D) float, over
+    key blocks of `block_k` (the JAX `flash_int8`'s default 512). k is
+    quantized per tensor and v per channel (on the card by K4's
+    quantization kernels), q per row in the attention kernel. Keys at index
+    >= kv_len (default L) are masked.
 
     CPU tensors take the plain version. CUDA tensors launch K4, which takes
-    contiguous bf16 or fp32 and D <= 128; anything else raises."""
+    contiguous bf16 or fp32, D <= 128 and block_k a multiple of 64;
+    anything else raises."""
     kv_len = k.shape[1] if kv_len is None else kv_len
     if q.device.type == "cpu":
-        return flash_int8_plain(q, k, v, scale, kv_len)
+        return flash_int8_plain(q, k, v, scale, kv_len, block_k)
     _check_cuda("flash_int8", (q, k, v), (torch.bfloat16, torch.float32))
     bh, l, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_int8: q/k/v must share one (BH, L, D) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if d > _K4_MAX_D or not 1 <= kv_len <= l:
-        raise ValueError(f"flash_int8: needs D <= {_K4_MAX_D} and 1 <= kv_len <= L, "
-                         f"got D={d}, kv_len={kv_len}, L={l}")
-    k8, v8, sk, sv = _quantize_kv(k, v)
-    fac = (sk * scale).reshape(1).float()
-    sv = sv.reshape(bh, d).contiguous()
+    if d > _K4_MAX_D or not 1 <= kv_len <= l or block_k < 1 or block_k % _K4_TILE:
+        raise ValueError(f"flash_int8: needs D <= {_K4_MAX_D}, 1 <= kv_len <= L and "
+                         f"block_k a multiple of {_K4_TILE}, got D={d}, "
+                         f"kv_len={kv_len}, L={l}, block_k={block_k}")
+    k8, v8t, scratch = _k4_quantize(k, v)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.library().anyedit_flash_int8(
-        q.data_ptr(), k8.data_ptr(), v8.data_ptr(), fac.data_ptr(), sv.data_ptr(),
-        out.data_ptr(), bh, l, kv_len, d, int(q.dtype == torch.bfloat16), stream)
+        q.data_ptr(), k8.data_ptr(), v8t.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        bh, l, k8.shape[1], kv_len, d, float(scale), block_k,
+        int(q.dtype == torch.bfloat16), _k4_warps(bh, l), stream)
     _build.check("flash_int8", err)
     flash_int8.launches += 1
     return out
+
+
+def _k4_quantize(k: torch.Tensor, v: torch.Tensor):
+    """`_quantize_kv` and `k4_layout` in one pass on the card (K4's first
+    two kernels). k, v: contiguous CUDA (BH, L, D), checked by the caller.
+    Returns (k8 (BH, LP, DP), v8ᵀ (BH, DP, LP), scratch): scratch holds the
+    bits of k's absmax, then of v's per (head, channel)."""
+    bh, l, d = k.shape
+    dp, lp = -(-d // 16) * 16, -(-l // _K4_TILE) * _K4_TILE
+    scratch = torch.empty(1 + bh * d, dtype=torch.int32, device=k.device)
+    k8 = torch.empty((bh, lp, dp), dtype=torch.int8, device=k.device)
+    v8t = torch.empty((bh, dp, lp), dtype=torch.int8, device=k.device)
+    err = _build.library().anyedit_k4_quantize(
+        k.data_ptr(), v.data_ptr(), scratch.data_ptr(), k8.data_ptr(), v8t.data_ptr(),
+        bh, l, lp, d, int(k.dtype == torch.bfloat16),
+        torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check("flash_int8 (quantize)", err)
+    return k8, v8t, scratch
 
 
 flash_int8.launches = 0
@@ -259,9 +327,9 @@ def _heads(t: torch.Tensor) -> torch.Tensor:
 
 def self_attn_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float | None = None) -> torch.Tensor:
-    """INT8 self-attention over (B, H, L, D) through `flash_int8` (the JAX
-    `_self_attn_int8`, forward only: its recompute backward comes with the
-    training slice)."""
+    """INT8 self-attention over (B, H, L, D) through `flash_int8` at its
+    default 512-key blocks (the JAX `_self_attn_int8`, forward only: its
+    recompute backward comes with the training slice)."""
     b, h, l, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)

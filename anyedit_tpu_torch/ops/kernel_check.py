@@ -4,10 +4,13 @@ Shared by `chip_smoke.py` and `tools/bench_torch_ip2p.py`. Every function
 here needs a CUDA device; the plain references run with TF32 off.
 
 Each `check_*` of a kernel also returns its yardsticks:
-  * `bound_ms`, `bound_by`: the least time the card could take, the larger
-    of the operations over the published dense peak for their type and the
-    bytes (each input read once, each output written once) over 3.35 TB/s
-    (NVIDIA's H100 SXM data sheet), and which of the two it is;
+  * `bound_ms`, `bound_by`, `bound_term`: the least time the card could
+    take, the largest of the operations over the published dense peak for
+    their type, the exps over the SFU's rate, and the bytes (each input
+    read once, each output written once) over 3.35 TB/s (NVIDIA's H100 SXM
+    data sheet); `bound_by` is "operations" (exps included) or "bytes",
+    and `bound_term` names the term: the operations' type, "exp" or
+    "bytes";
   * `library_ms`, `library`, `library_kernel`: one PyTorch call that
     computes the same function on the same inputs, its name, and the
     kernel that took most of its device time (for attention: the backend
@@ -18,6 +21,7 @@ Each `check_*` of a kernel also returns its yardsticks:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -48,25 +52,47 @@ def time_ms(fn, iters: int = 10) -> float:
 
 # Published dense peaks of one H100 SXM (at its 700 W limit).
 PEAK_BF16 = 989e12      # FLOP/s, tensor cores
+PEAK_TF32 = 494.7e12    # FLOP/s, tensor cores
 PEAK_FP32 = 67e12       # FLOP/s, outside the tensor cores
 PEAK_INT8 = 1979e12     # OP/s, tensor cores
 HBM_BYTES_PER_S = 3.35e12
+PEAK_NAMES = {PEAK_BF16: "bf16 tensor", PEAK_TF32: "tf32 tensor", PEAK_FP32: "fp32",
+              PEAK_INT8: "int8 tensor"}
+# exp2 (MUFU) results a clock on one SM of compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), and the H100's SMs
+EXP_PER_CLOCK_SM = 16
+SMS = 132
 
 
-def roofline(ops: float, peak: float, nbytes: float) -> dict:
-    """bound_ms = max(ops / peak, bytes / HBM rate), and which one binds."""
-    ops_ms = ops / peak * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, from `nvidia-smi --query-gpu=clocks.max.sm`."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
 
 
-def device_profile(fn, iters: int = 10) -> tuple[float, str]:
-    """(device ms per call, name of the kernel with the most device time)
-    of `fn()`, from `torch.profiler` over `iters` calls after a warm-up.
-    Unlike `time_ms` this leaves out the host's launch overhead, which
-    bounds `time_ms` for kernels of a few microseconds; the name says which
-    backend a PyTorch call took."""
+@functools.cache
+def exp_per_s() -> float:
+    """The SFU's exp2 rate: 16 a clock an SM x 132 SMs x the highest SM clock."""
+    return EXP_PER_CLOCK_SM * SMS * max_sm_clock_hz()
+
+
+def roofline(ops: float, peak: float, nbytes: float, exps: float = 0.0) -> dict:
+    """bound_ms = max(ops / peak, exps / SFU rate, bytes / HBM rate), and
+    which one binds."""
+    terms = {PEAK_NAMES[peak]: ops / peak * 1e3,
+             "exp": exps / exp_per_s() * 1e3 if exps else 0.0,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "bound_term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations"}
+
+
+def _kernel_us(fn, iters: int) -> list[tuple[str, float]]:
+    """(kernel name, device microseconds in all) over `iters` calls of
+    `fn()` after a warm-up, from `torch.profiler`."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -75,14 +101,27 @@ def device_profile(fn, iters: int = 10) -> tuple[float, str]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total, best, name = 0.0, -1.0, "unknown"
+    rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        total += us
-        if us > best:
-            best, name = us, e.key
-    return total / iters / 1e3, name[:120]
+        rows.append((e.key, e.self_cuda_time_total if us is None else us))
+    return rows
+
+
+def device_profile(fn, iters: int = 10) -> tuple[float, str]:
+    """(device ms per call, name of the kernel with the most device time)
+    of `fn()`. Unlike `time_ms` this leaves out the host's launch overhead,
+    which bounds `time_ms` for kernels of a few microseconds; the name says
+    which backend a PyTorch call took."""
+    rows = _kernel_us(fn, iters)
+    name = max(rows, key=lambda r: r[1])[0] if rows else "unknown"
+    return sum(us for _, us in rows) / iters / 1e3, name[:120]
+
+
+def named_device_ms(fn, name: str, iters: int = 10) -> float:
+    """Device ms per call of `fn()` in the kernels whose name holds `name`:
+    a hand kernel alone, without the PyTorch ops its wrapper runs around it."""
+    return sum(us for key, us in _kernel_us(fn, iters) if name in key) / iters / 1e3
 
 
 def _timings(res: dict, kernel, plain, library, iters: int) -> None:
@@ -124,7 +163,7 @@ def check_flash_nomax(bh: int, l: int, d: int, device, seed: int = 0,
              lambda: flash_nomax_plain(q, k, v, scale), _sdpa(q, k, v, scale), iters)
     res["library"] = "F.scaled_dot_product_attention"
     res["tflops"] = 4 * bh * l * l * d / res["ms"] * 1e-9
-    res.update(roofline(4 * bh * l * l * d, PEAK_BF16, 4 * q.numel() * 2))
+    res.update(roofline(4 * bh * l * l * d, PEAK_BF16, 4 * q.numel() * 2, exps=bh * l * l))
     return res
 
 
@@ -165,9 +204,10 @@ def check_group_norm(shape, silu: bool, device, dtype=torch.bfloat16,
     res["library"] = "F.group_norm, then F.silu (two calls)" if silu else "F.group_norm"
     res["gbps"] = 2 * x.numel() * x.element_size() / res["device_ms"] * 1e-6
     # about 10 fp32 operations an element (two statistics passes, the
-    # affine, SiLU); the bytes bind by far
+    # affine, SiLU) and SiLU's exp; the bytes bind by far
     res.update(roofline(10 * x.numel(), PEAK_FP32,
-                        2 * x.numel() * x.element_size() + 2 * c * 4))
+                        2 * x.numel() * x.element_size() + 2 * c * 4,
+                        exps=x.numel() if silu else 0))
     return res
 
 
@@ -182,52 +222,67 @@ def _bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def check_flash_attention(bh: int, lq: int, lkv: int, d: int, device,
-                          dtype=torch.bfloat16, seed: int = 2, iters: int = 10) -> dict:
+                          dtype=torch.bfloat16, kv_len: int | None = None,
+                          seed: int = 2, iters: int = 10) -> dict:
     """K3 vs its plain version on N(0, 1) q/k/v: q (bh, lq, d), k/v
-    (bh, lkv, d). `bf16_ulps` is the largest difference in bf16 roundings
-    of the output (the bound for bf16 inputs is 1); fp32 inputs are held to
-    max_abs_err."""
+    (bh, lkv, d), keys at or past `kv_len` (default lkv) masked.
+    `bf16_ulps` is the largest difference in bf16 roundings of the output
+    (the bound for bf16 inputs is 1); fp32 inputs are held to max_abs_err."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(bh, lq, d, generator=g, device=device).to(dtype)
     k, v = (torch.randn(bh, lkv, d, generator=g, device=device).to(dtype)
             for _ in range(2))
     scale = 1.0 / math.sqrt(d)
-    out = flash_attention(q, k, v, scale)
-    ref = flash_attention_plain(q, k, v, scale)
+    kv_len = lkv if kv_len is None else kv_len
+    out = flash_attention(q, k, v, scale, kv_len)
+    ref = flash_attention_plain(q, k, v, scale, kv_len)
     res = _errors(out, ref)
     res["bf16_ulps"] = _bf16_ulps(out, ref)
-    _timings(res, lambda: flash_attention(q, k, v, scale),
-             lambda: flash_attention_plain(q, k, v, scale),
-             _sdpa(*(t.float() for t in (q, k, v)), scale), iters)
+    kv = (t[:, :kv_len].float() for t in (k, v))
+    _timings(res, lambda: flash_attention(q, k, v, scale, kv_len),
+             lambda: flash_attention_plain(q, k, v, scale, kv_len),
+             _sdpa(q.float(), *kv, scale), iters)
     res["library"] = "F.scaled_dot_product_attention on fp32 copies"
-    res["tflops"] = 4 * bh * lq * lkv * d / res["ms"] * 1e-9
-    # fp32 FFMA contract: fp32's 67 TFLOP/s is the peak that applies
-    res.update(roofline(4 * bh * lq * lkv * d, PEAK_FP32,
-                        (2 * q.numel() + 2 * k.numel()) * q.element_size()))
+    res["tflops"] = 4 * bh * lq * kv_len * d / res["ms"] * 1e-9
+    # tensor-core products: the bf16 peak for bf16 inputs, TF32's for fp32
+    # (3xTF32 runs three TF32 products for each); one exp a logit
+    res.update(roofline(4 * bh * lq * kv_len * d,
+                        PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32,
+                        (2 * q.numel() + 2 * bh * kv_len * d) * q.element_size(),
+                        exps=bh * lq * kv_len))
     return res
 
 
 def check_flash_int8(bh: int, l: int, d: int, device, dtype=torch.bfloat16,
+                     kv_len: int | None = None, block_k: int = 512,
                      seed: int = 3, iters: int = 10) -> dict:
-    """K4 vs its plain version on N(0, 1) q/k/v (bh, l, d), and its relative
-    L2 distance to fp32 `sdpa` (`rel_l2_sdpa`; the JAX package bounds it by
-    0.03 at (2, 1024, 128) in fp32, tests/test_quant.py:207)."""
+    """K4 vs its plain version on N(0, 1) q/k/v (bh, l, d) at the same key
+    blocks, keys at or past `kv_len` (default l) masked, and its relative L2
+    distance to fp32 `sdpa` over the unmasked keys (`rel_l2_sdpa`; the JAX
+    package bounds it by 0.03 at (2, 1024, 128) in fp32,
+    tests/test_quant.py:207)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(bh, l, d, generator=g, device=device).to(dtype)
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
-    out = flash_int8(q, k, v, scale)
-    res = _errors(out, flash_int8_plain(q, k, v, scale))
-    exact = sdpa(*(t.float()[:, None] for t in (q, k, v)), scale=scale)[:, 0]
+    kv_len = l if kv_len is None else kv_len
+    out = flash_int8(q, k, v, scale, kv_len, block_k)
+    res = _errors(out, flash_int8_plain(q, k, v, scale, kv_len, block_k))
+    exact = sdpa(q.float()[:, None], *(t[:, None, :kv_len].float() for t in (k, v)),
+                 scale=scale)[:, 0]
     res["rel_l2_sdpa"] = float((out.float() - exact).norm() / exact.norm())
-    _timings(res, lambda: flash_int8(q, k, v, scale),
-             lambda: flash_int8_plain(q, k, v, scale), None, iters)
+    _timings(res, lambda: flash_int8(q, k, v, scale, kv_len, block_k),
+             lambda: flash_int8_plain(q, k, v, scale, kv_len, block_k), None, iters)
+    # the wrapper quantizes k and v and writes their layout with PyTorch ops
+    res["kernel_device_ms"] = named_device_ms(
+        lambda: flash_int8(q, k, v, scale, kv_len, block_k), "flash_int8_kernel", iters)
     res["library"] = ("none: no PyTorch call computes attention with the /127 "
                       "probability grid and int8 products")
-    res["tops"] = 4 * bh * l * l * d / res["ms"] * 1e-9
-    res.update(roofline(4 * bh * l * l * d, PEAK_INT8, 4 * q.numel() * q.element_size()))
+    res["tops"] = 4 * bh * l * kv_len * d / res["ms"] * 1e-9
+    res.update(roofline(4 * bh * l * kv_len * d, PEAK_INT8,
+                        4 * q.numel() * q.element_size(), exps=bh * l * kv_len))
     return res
 
 

@@ -133,6 +133,116 @@ def test_k1_blocks_divide_l(l, d):
     assert l % (16 * warps * tiles) == 0
 
 
+@pytest.mark.parametrize("bh,l,d", [(2, 1000, 40), (1, 64, 128), (3, 77, 1), (2, 4096, 80)])
+def test_k4_layout_round_trips(bh, l, d):
+    """`k4_layout` pads k8 to (BH, round64(L), round16(D)) with zeros and
+    writes v8 transposed and padded, the keys of each 32-key group in
+    `_k4_key_order` (a permutation): undoing the order and the transpose
+    gives v8 back, and every pad byte is zero."""
+    g = torch.Generator().manual_seed(0)
+    k8, v8 = (torch.randint(-127, 128, (bh, l, d), generator=g).to(torch.int8)
+              for _ in range(2))
+    kp, vt = tattn.k4_layout(k8, v8)
+    lp, dp = -(-l // 64) * 64, -(-d // 16) * 16
+    assert kp.shape == (bh, lp, dp) and vt.shape == (bh, dp, lp)
+    assert kp.dtype == vt.dtype == torch.int8 and vt.is_contiguous()
+    order = tattn._k4_key_order()
+    assert sorted(order) == list(range(32))
+    inverse = torch.tensor(order).argsort()
+    v_back = vt.view(bh, dp, lp // 32, 32)[..., inverse].reshape(bh, dp, lp).transpose(1, 2)
+    assert torch.equal(kp[:, :l, :d], k8) and torch.equal(v_back[:, :l, :d], v8)
+    assert not kp[:, l:].any() and not kp[..., d:].any()
+    assert not v_back[:, l:].any() and not v_back[..., d:].any()
+
+
+def test_k4_fragments_compute_p_dot_v():
+    """The register path of K4's P.V, emulated lane by lane for one 32-key
+    group: P8 packed from m16n8 accumulators as the kernel packs it, v8ᵀ
+    read from `k4_layout` as `ldmatrix` reads it, through the PTX fragment
+    layouts of `mma.m16n8k32.s8`, equals P8 . V8."""
+    g = torch.Generator().manual_seed(1)
+    p8 = torch.randint(0, 128, (16, 32), generator=g)
+    v8 = torch.randint(-127, 128, (1, 32, 8), generator=g).to(torch.int8)
+    _, vt = tattn.k4_layout(v8, v8)
+    vt = vt[0, :8, :32].long()                       # (channels, keys in K4's order)
+    a = torch.zeros(16, 32, dtype=torch.long)        # the MMA's logical A
+    b = torch.zeros(32, 8, dtype=torch.long)         # and B
+    for lane in range(32):
+        gr, t = lane // 4, lane % 4
+        for half in range(2):                        # a0/a1, then a2/a3
+            keys = [16 * half + 2 * t, 16 * half + 2 * t + 1,   # accumulator pairs
+                    16 * half + 8 + 2 * t, 16 * half + 9 + 2 * t]  # of two n8 tiles
+            for i, key in enumerate(keys):
+                a[gr, 16 * half + 4 * t + i] = p8[gr, key]
+                a[gr + 8, 16 * half + 4 * t + i] = p8[gr + 8, key]
+                b[16 * half + 4 * t + i, gr] = vt[gr, 16 * half + 4 * t + i]
+    assert torch.equal(a @ b, p8 @ v8[0].long())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as `cvt.rna.tf32.f32` does: the 13 low mantissa
+    bits dropped, to nearest, ties away from zero."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _k3_split_emulation(q, k, v, scale, block_k):
+    """K3's arithmetic in torch, tile by tile: base-2 online softmax with
+    ex2 on the scaled logits; bf16 inputs: exact products and p split into
+    bf16 hi + lo for P.V; fp32 inputs: 3xTF32 for both products."""
+    if q.dtype == torch.bfloat16:
+        qf, kf, vf = q.float(), k.float(), v.float()
+        mm = torch.matmul
+
+        def pv(p, vt):
+            hi = p.to(torch.bfloat16).float()
+            return mm(hi, vt) + mm((p - hi).to(torch.bfloat16).float(), vt)
+    else:
+        qf, kf, vf = q, k, v
+
+        def mm(a, b):
+            ab, bb = _tf32(a), _tf32(b)
+            return mm_f(_tf32(a - ab), bb) + mm_f(ab, _tf32(b - bb)) + mm_f(ab, bb)
+        mm_f = torch.matmul
+        pv = mm
+    qk_scale = scale * 1.4426950408889634
+    m = torch.full(q.shape[:2] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, k.shape[1], block_k):
+        s = mm(qf, kf[:, k0:k0 + block_k].transpose(1, 2))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * qk_scale)
+        p = torch.exp2(s * qk_scale - m_new)
+        c = torch.exp2(m - m_new)
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + pv(p, vf[:, k0:k0 + block_k])
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,lq,lkv,d", [(2, 64, 77, 40), (2, 37, 200, 80),
+                                         (1, 48, 77, 160), (1, 20, 96, 256)])
+def test_k3_split_arithmetic_holds_the_card_bounds(dtype, bh, lq, lkv, d):
+    """K3's numeric recipe, emulated in torch, within the card's bounds of
+    `flash_attention_plain`: bf16 inputs (exact products, p = bf16 hi + lo
+    for P.V) within one bf16 rounding of the output; fp32 inputs (3xTF32
+    for both products) within 2e-5 max-abs. One TF32 pass misses it."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(bh, lq, d, generator=g).to(dtype)
+    k, v = (torch.randn(bh, lkv, d, generator=g).to(dtype) for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    ref = tattn.flash_attention_plain(q, k, v, scale)
+    out = _k3_split_emulation(q, k, v, scale, 64 if d <= 128 else 32)
+    if dtype == torch.bfloat16:
+        assert kc._bf16_ulps(out, ref) <= 1.0
+    else:
+        assert float((out - ref).abs().max()) <= 2e-5
+        one_pass = torch.softmax(torch.matmul(_tf32(q), _tf32(k).transpose(1, 2)) * scale, -1)
+        one_pass = torch.matmul(_tf32(one_pass), _tf32(v))
+        assert float((one_pass - ref).abs().max()) > 2e-5
+
+
 # ---- the hand kernels on the card ---------------------------------------
 
 @pytest.mark.cuda
@@ -230,15 +340,20 @@ def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,lq,lkv,d,dtype", [
-    (24, 1024, 77, 80, torch.bfloat16), (24, 64, 64, 160, torch.bfloat16),
-    (4, 1000, 1000, 40, torch.bfloat16), (6, 300, 77, 40, torch.float32)])
-def test_flash_attention_kernel_matches_plain(cuda, bh, lq, lkv, d, dtype):
+@pytest.mark.parametrize("bh,lq,lkv,d,dtype,kv_len", [
+    (24, 1024, 77, 80, torch.bfloat16, None), (24, 64, 64, 160, torch.bfloat16, None),
+    (4, 1000, 1000, 40, torch.bfloat16, None), (6, 300, 77, 40, torch.float32, None),
+    (2, 100, 300, 256, torch.bfloat16, None), (2, 100, 300, 256, torch.float32, None),
+    (4, 200, 77, 160, torch.float32, None), (3, 77, 130, 80, torch.bfloat16, 100),
+    (2, 50, 128, 36, torch.bfloat16, 77), (2, 50, 128, 36, torch.float32, 77)])
+def test_flash_attention_kernel_matches_plain(cuda, bh, lq, lkv, d, dtype, kv_len):
     """K3 vs its plain version: fp32 inputs within 2e-5 (test_ops.py:26);
     bf16 inputs within one bf16 rounding of the output plus 1e-5 for fp32
-    sums taken in another order near zero."""
+    sums taken in another order near zero. Covers D = 256 (Q fragments read
+    from shared memory), fp32 at D = 160 and 256, Lq not a multiple of the
+    block's rows, keys masked at kv_len < Lkv, and D = 36 (plain loads)."""
     before = tattn.flash_attention.launches
-    r = kc.check_flash_attention(bh, lq, lkv, d, cuda, dtype=dtype, iters=1)
+    r = kc.check_flash_attention(bh, lq, lkv, d, cuda, dtype=dtype, kv_len=kv_len, iters=1)
     assert tattn.flash_attention.launches > before and r["finite"]
     if dtype == torch.float32:
         assert r["max_abs_err"] <= 2e-5
@@ -247,16 +362,58 @@ def test_flash_attention_kernel_matches_plain(cuda, bh, lq, lkv, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,l,d", [(24, 1024, 80), (4, 1000, 40)])
-def test_flash_int8_kernel_matches_plain(cuda, bh, l, d):
-    """K4 vs its plain version on the same bf16 inputs (same quantization,
-    same 64-key tiles): mean-abs <= 1e-4, max-abs <= 3e-2; and within the
-    JAX package's relative-L2 bound of fp32 sdpa at these lengths (0.03)."""
+@pytest.mark.parametrize("bh,l,d,dtype,kv_len,block_k", [
+    (24, 1024, 80, torch.bfloat16, None, 512), (4, 1000, 40, torch.bfloat16, None, 512),
+    (4, 1000, 40, torch.bfloat16, 900, 512), (4, 1000, 40, torch.bfloat16, 900, 64),
+    (2, 1024, 128, torch.float32, None, 512), (2, 300, 16, torch.float32, None, 128)])
+def test_flash_int8_kernel_matches_plain(cuda, bh, l, d, dtype, kv_len, block_k):
+    """K4 vs its plain version on the same inputs (same quantization, same
+    key blocks; L = 1000 ends in a short block, kv_len < L masks keys, and
+    block 64 against block 512): mean-abs <= 1e-4, max-abs <= 3e-2; and
+    within the JAX package's relative-L2 bound of fp32 sdpa at these
+    lengths (0.03)."""
     before = tattn.flash_int8.launches
-    r = kc.check_flash_int8(bh, l, d, cuda, iters=1)
+    r = kc.check_flash_int8(bh, l, d, cuda, dtype=dtype, kv_len=kv_len, block_k=block_k,
+                            iters=1)
     assert tattn.flash_int8.launches > before and r["finite"]
     assert r["mean_abs_err"] <= 1e-4 and r["max_abs_err"] <= 3e-2
     assert r["rel_l2_sdpa"] < 0.03
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,l,d,dtype", [(24, 4096, 40, torch.bfloat16),
+                                         (4, 1000, 80, torch.float32), (3, 77, 1, torch.bfloat16),
+                                         (2, 300, 128, torch.bfloat16)])
+def test_k4_quantize_kernel_writes_the_layout(cuda, bh, l, d, dtype):
+    """K4's quantization kernels write, byte for byte, what `_quantize_kv`
+    and `k4_layout` give on the CPU (codes, pads, v8ᵀ's key order), and the
+    bits of k's and v's absmaxes. The reference runs on the CPU, whose
+    division is correctly rounded as the kernel's and JAX's are: PyTorch's
+    CUDA division rounds some ties x / s = 63.5 (x = absmax / 2) the other
+    way."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    k, v = (torch.randn(bh, l, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k8, v8t, scratch = tattn._k4_quantize(k, v)
+    torch.cuda.synchronize()
+    rk8, rv8, _, _ = tattn._quantize_kv(k.cpu(), v.cpu())
+    rk8, rv8t = tattn.k4_layout(rk8, rv8)
+    assert torch.equal(k8.cpu(), rk8) and torch.equal(v8t.cpu(), rv8t)
+    amax = scratch.view(torch.float32)
+    assert float(amax[0]) == float(k.abs().max())
+    assert torch.equal(amax[1:].view(bh, d), v.abs().amax(1).float())
+
+
+@pytest.mark.cuda
+def test_flash_int8_kernel_rounds_on_its_blocks(cuda):
+    """The block size changes K4's result as it changes the JAX kernel's:
+    at (4, 1024, 40) the kernel at block 512 is far closer to the plain
+    version at block 512 than to the plain version at block 64."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(4, 1024, 40, generator=g, device=cuda) for _ in range(3))
+    out = tattn.flash_int8(q, k, v, 40 ** -0.5)
+    same = (out - tattn.flash_int8_plain(q, k, v, 40 ** -0.5)).abs().mean()
+    other = (out - tattn.flash_int8_plain(q, k, v, 40 ** -0.5, block_k=64)).abs().mean()
+    assert float(same) <= 1e-5 < float(other)
 
 
 @pytest.mark.cuda

@@ -96,21 +96,43 @@ def test_flash_attention_kv_len_masks_key_padding():
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
 
 
-@pytest.mark.parametrize("l,d,kv_len", [(512, 40, None), (256, 80, 200)])
-def test_flash_int8_plain_matches_jax_kernel(l, d, kv_len):
+@pytest.mark.parametrize("block_k", [64, 512])
+@pytest.mark.parametrize("l,d,kv_len", [(512, 40, None), (256, 80, 200), (1000, 40, None)])
+def test_flash_int8_plain_matches_jax_kernel(l, d, kv_len, block_k):
     """K4's plain version vs the Pallas kernel (interpret mode, D padded to
-    128 as `_self_attn_int8` does, the same 64-key tiles), fp32 inputs:
-    max-abs 1e-3 and mean-abs 1e-5. The quantization is the same; what
-    differs is fp32 order, which flips the odd p8 = round(127 p) code."""
+    128 as `_self_attn_int8` does, the same key blocks), fp32 inputs:
+    max-abs 1e-3 and mean-abs 1e-5. The JAX side takes L padded with zero
+    keys to a whole number of blocks and the true key count as `kv_len`
+    (L = 1000 against 1024 at block 512: a short last block); the port
+    takes L as it is. The quantization is the same; what differs is fp32
+    order, which flips the odd p8 = round(127 p) code."""
     rng = np.random.default_rng(13)
     q, k, v = (rng.standard_normal((2, l, d)).astype(np.float32) for _ in range(3))
     scale = 1.0 / math.sqrt(d)
-    pad = lambda a: jnp.pad(jnp.asarray(a), ((0, 0), (0, 0), (0, 128 - d)))
-    ref = jax_flash_int8(pad(q), pad(k), pad(v), scale, block_q=l // 2, block_k=64,
-                         kv_len=kv_len, interpret=True)[..., :d]
+    lp = -(-l // block_k) * block_k
+    pad = lambda a: jnp.pad(jnp.asarray(a), ((0, 0), (0, lp - l), (0, 128 - d)))
+    ref = jax_flash_int8(pad(q), pad(k), pad(v), scale, block_q=lp // 2, block_k=block_k,
+                         kv_len=l if kv_len is None else kv_len, interpret=True)[:, :l, :d]
     out = tattn.flash_int8(*(torch.from_numpy(a) for a in (q, k, v)), scale,
-                           kv_len=kv_len)
+                           kv_len=kv_len, block_k=block_k)
     err = np.abs(_np(out) - _np(ref))
+    assert err.max() <= 1e-3 and err.mean() <= 1e-5, (err.max(), err.mean())
+
+
+def test_self_attn_int8_matches_jax_default_blocks():
+    """`self_attn_int8` at (1, 2, 1024, 40) against what the JAX
+    `_self_attn_int8` runs: `flash_int8` at its default 512-key blocks on D
+    padded to 128 (interpret mode), fp32: max-abs 1e-3 and mean-abs 1e-5.
+    Rounded on 64-key tiles instead, p8 lands on another grid: mean-abs
+    5.7e-4."""
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.standard_normal((1, 2, 1024, 40)).astype(np.float32) for _ in range(3))
+    scale = 1.0 / math.sqrt(40)
+    pad = lambda a: jnp.pad(jnp.asarray(a[0]), ((0, 0), (0, 0), (0, 88)))
+    ref = jax_flash_int8(pad(q), pad(k), pad(v), scale, block_q=512, block_k=512,
+                         interpret=True)[..., :40]
+    out = tattn.self_attn_int8(*(torch.from_numpy(a) for a in (q, k, v)))
+    err = np.abs(_np(out[0]) - _np(ref))
     assert err.max() <= 1e-3 and err.mean() <= 1e-5, (err.max(), err.mean())
 
 

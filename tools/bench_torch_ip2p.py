@@ -5,6 +5,8 @@
     python3 tools/bench_torch_ip2p.py --kernels    # K1-K4 vs plain, JSON lines
     python3 tools/bench_torch_ip2p.py --k1-blocks  # K1 at each block shape
     python3 tools/bench_torch_ip2p.py --k2-plans   # K2 under each launch plan
+    python3 tools/bench_torch_ip2p.py --k34-blocks # K3 and K4 at each warps a block
+    python3 tools/bench_torch_ip2p.py --paths      # UNet calls through K3 and K4
     python3 tools/bench_torch_ip2p.py --profile    # device time by kernel class
     python3 tools/bench_torch_ip2p.py --profile --int8
     python3 tools/bench_torch_ip2p.py --latency [--int8]  # s per 100-step request
@@ -31,6 +33,8 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import K3_SHAPES  # noqa: E402  (the repo root, just put on the path)
 
 SIZE = 512
 STEPS = 50
@@ -215,6 +219,47 @@ def bench_k1_blocks(dev) -> list[dict]:
     return rows
 
 
+# K3 and K4 at their paths' shapes (one image: B*H = 24)
+K4_SHAPES = ((24, 4096, 40), (24, 1024, 80))
+K34_WARPS = (1, 2, 4, 8)
+
+
+def bench_k34_blocks(dev) -> list[dict]:
+    """K3 (bf16) and K4 at their paths' shapes with each block size they
+    take (warps a block, 16 q rows each), in turns: the list, then the list
+    reversed. Device time alone (`device_profile`), since the small shapes
+    are bound by the host's launch cost under CUDA events."""
+    import torch
+    from anyedit_tpu_torch.ops import attention
+    from anyedit_tpu_torch.ops.kernel_check import device_profile
+
+    chosen = attention._k3_warps, attention._k4_warps
+    g = torch.Generator(device=dev).manual_seed(0)
+    k3 = {s: (torch.randn(s[0], s[1], s[3], generator=g, device=dev).to(torch.bfloat16),
+              *(torch.randn(s[0], s[2], s[3], generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))) for s in K3_SHAPES}
+    k4 = {s: [torch.randn(s, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+          for s in K4_SHAPES}
+    rows = []
+    try:
+        for warps in K34_WARPS + K34_WARPS[::-1]:
+            attention._k3_warps = lambda *a, w=warps: w
+            attention._k4_warps = lambda *a, w=warps: w
+            for shape, (q, k, v) in k3.items():
+                ms = device_profile(lambda: attention.flash_attention(q, k, v, shape[3] ** -0.5),
+                                    iters=20)[0]
+                rows.append({"kernel": "flash_attention", "warps": warps,
+                             "shape": list(shape), "device_ms": ms})
+            for shape, (q, k, v) in k4.items():
+                ms = device_profile(lambda: attention.flash_int8(q, k, v, shape[2] ** -0.5),
+                                    iters=20)[0]
+                rows.append({"kernel": "flash_int8", "warps": warps,
+                             "shape": list(shape), "device_ms": ms})
+    finally:
+        attention._k3_warps, attention._k4_warps = chosen
+    return rows
+
+
 # K2 launch plans to compare: (target blocks, min chunk KB, shared-memory cap KB)
 K2_PLANS = ((132, 16, 96), (264, 16, 96), (132, 32, 96), (132, 16, 48), (132, 16, 200))
 
@@ -285,12 +330,12 @@ def bench_kernels(dev) -> list[dict]:
     from anyedit_tpu_torch.ops import kernel_check as kc
 
     rows = []
-    for bh, lq, lkv, d in ((24, 4096, 4096, 40), (24, 1024, 1024, 80),
-                           (24, 256, 256, 160), (24, 64, 64, 160), (24, 4096, 77, 40),
-                           (24, 1024, 77, 80), (24, 256, 77, 160), (24, 64, 77, 160)):
+    for bh, lq, lkv, d in K3_SHAPES:
         r = kc.check_flash_attention(bh, lq, lkv, d, dev)
         rows.append({"kernel": "flash_attention", "shape": [bh, lq, lkv, d], **r})
-    for bh, l, d in ((24, 4096, 40), (24, 1024, 80)):
+    r = kc.check_flash_attention(6, 300, 77, 40, dev, dtype=torch.float32)
+    rows.append({"kernel": "flash_attention", "shape": [6, 300, 77, 40], "fp32": True, **r})
+    for bh, l, d in K4_SHAPES:
         r = kc.check_flash_int8(bh, l, d, dev)
         rows.append({"kernel": "flash_int8", "shape": [bh, l, d], **r})
     for kind in ("conv", "dense"):
@@ -304,13 +349,49 @@ def bench_kernels(dev) -> list[dict]:
     return rows
 
 
+def bench_paths(dev) -> list[dict]:
+    """The two opt-in kernel paths of `chip_smoke.py`, through its
+    processors: one full-width bf16 UNet call with every attention site on
+    K3, and one W8A8 UNet call with the level-0/1 self-attention on K4, at
+    batch 3 (one request) and 24 (the bench batch), beside the same calls
+    on the default route. Each row: CUDA-event ms per call and the kernel's
+    device ms per call (`torch.profiler`)."""
+    import torch
+    from chip_smoke import flash_processor, int8_flash_processor
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET
+    from anyedit_tpu_torch.ops.kernel_check import named_device_ms, time_ms
+
+    hw = SIZE // 8
+    rows = []
+    for int8 in (False, True):
+        unet = build_unet(dev, int8)
+        proc, kernel = ((int8_flash_processor, "flash_int8") if int8
+                        else (flash_processor, "flash_attention"))
+        for b in (3, 3 * BATCH):
+            g = torch.Generator(device=dev).manual_seed(5)
+            x = torch.randn(b, hw, hw, SD15_IP2P_UNET.in_channels, generator=g, device=dev)
+            t = torch.full((b,), 501, device=dev)
+            ctx = torch.randn(b, 77, SD15_IP2P_UNET.context_dim, generator=g, device=dev)
+            with torch.inference_mode():
+                row = {"path": "K4" if int8 else "K3", "unet": "W8A8" if int8 else "bf16",
+                       "batch": b,
+                       "ms": time_ms(lambda: unet(x, t, ctx, processor=proc), iters=5),
+                       "default_route_ms": time_ms(lambda: unet(x, t, ctx), iters=5),
+                       "kernel_device_ms": named_device_ms(
+                           lambda: unet(x, t, ctx, processor=proc), kernel, iters=3)}
+            rows.append(row)
+        del unet
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _category(kernel: str) -> str:
     """Coarse class of a CUDA kernel name, for the time breakdown."""
     n = kernel.lower()
     for cat, keys in (("K1 flash_nomax", ("flash_nomax",)),
                       ("K2 group_norm", ("group_norm",)),
                       ("K3 flash_attention", ("flash_attention",)),
-                      ("K4 flash_int8", ("flash_int8",)),
+                      ("K4 flash_int8", ("flash_int8", "k4_absmax", "k4_quantize")),
                       ("int8 matmul (cuBLASLt)", ("gemm_s8", "imma", "i8i8", "s8s8")),
                       ("conv (cuDNN, incl. layout transposes)",
                        ("conv", "cudnn", "fprop", "nchwtonhwc", "nhwctonchw")),
@@ -394,6 +475,10 @@ def main() -> int:
                       help="time K1 at each block shape it takes instead")
     mode.add_argument("--k2-plans", action="store_true",
                       help="K2's device time in the UNet and VAE per launch plan instead")
+    mode.add_argument("--k34-blocks", action="store_true",
+                      help="time K3 and K4 at each block size they take instead")
+    mode.add_argument("--paths", action="store_true",
+                      help="time UNet calls with attention on K3 and on K4 instead")
     mode.add_argument("--profile", action="store_true",
                       help="device time by kernel class for the UNet and VAE instead")
     mode.add_argument("--latency", action="store_true",
@@ -401,7 +486,8 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
-    if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans):
+    if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
+                      or args.paths):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -416,6 +502,10 @@ def main() -> int:
         rows = bench_k1_blocks(dev)
     elif args.k2_plans:
         rows = bench_k2_plans(dev)
+    elif args.k34_blocks:
+        rows = bench_k34_blocks(dev)
+    elif args.paths:
+        rows = bench_paths(dev)
     elif args.profile:
         rows = profile_breakdown(dev, args.int8)
     elif args.latency:
