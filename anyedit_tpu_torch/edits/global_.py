@@ -1,0 +1,52 @@
+"""Global edits: color_alter / tone_transfer via the IP2P editor
+(counterpart of `anyedit_tpu/edits/global_.py`).
+
+color_alter grounds the edited object, runs the 100-step IP2P edit (s_txt
+8.0, s_img 0.9) on the whole image, and pastes the edited region back onto
+the original with a feathered seam; tone_transfer keeps the whole edited
+frame.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from anyedit_tpu_torch.core.schema import InstructionRecord
+from anyedit_tpu_torch.edits.types import EditOutcome, Toolbox
+from anyedit_tpu_torch.ops.morphology import dilate, gaussian_blur
+from anyedit_tpu_torch.ops.resize import to_u8
+
+STEPS, S_TXT, S_IMG = 100, 8.0, 0.9
+
+
+def crop_composite(original: np.ndarray, edited: np.ndarray, mask,
+                   feather_sigma: float = 2.0) -> np.ndarray:
+    """Paste the edited region onto the original with a feathered seam:
+    the mask dilated by 5, blurred with sigma 2, blended in fp32, clipped
+    and truncated to uint8 (as the JAX `astype(uint8)`). Runs on the mask's
+    device (the CPU for a numpy mask); returns numpy."""
+    m = torch.as_tensor(mask)
+    dev = m.device
+    m = gaussian_blur(dilate(m.float(), 5), feather_sigma)[..., None]
+    out = torch.as_tensor(edited, device=dev).float() * m \
+        + torch.as_tensor(original, device=dev).float() * (1.0 - m)
+    return to_u8(out).cpu().numpy()
+
+
+def color_alter(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
+                rng: np.random.Generator) -> EditOutcome:
+    g = tb.ground(image, rec.edited_object, mode="merge")
+    if g is None or not bool(g.mask.any()):
+        return EditOutcome(False, reason="object not found")
+    edited_full = np.asarray(tb.ip2p(image, rec.edit, None,
+                                     steps=STEPS, s_txt=S_TXT, s_img=S_IMG))
+    edited = crop_composite(image, edited_full, g.mask)
+    return EditOutcome(True, edited=edited, mask=g.mask.cpu().numpy())
+
+
+def tone_transfer(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
+                  rng: np.random.Generator) -> EditOutcome:
+    edited = np.asarray(tb.ip2p(image, rec.edit, None,
+                                steps=STEPS, s_txt=S_TXT, s_img=S_IMG))
+    return EditOutcome(True, edited=edited)

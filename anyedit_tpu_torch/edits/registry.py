@@ -1,0 +1,19 @@
+"""Edit-type -> pipeline dispatch (counterpart of `anyedit_tpu/edits/registry.py`),
+over the edit types ported so far."""
+
+from __future__ import annotations
+
+from anyedit_tpu_torch.edits import global_
+from anyedit_tpu_torch.edits.types import Pipeline
+
+EDIT_PIPELINES: dict[str, Pipeline] = {
+    "color_alter": global_.color_alter,
+    "tone_transfer": global_.tone_transfer,
+}
+
+
+def get_pipeline(edit_type: str) -> Pipeline:
+    if edit_type not in EDIT_PIPELINES:
+        raise KeyError(f"no pipeline ported for edit_type={edit_type!r} "
+                       f"(ported: {sorted(EDIT_PIPELINES)})")
+    return EDIT_PIPELINES[edit_type]

@@ -1,4 +1,4 @@
-"""Shared building blocks for the port's diffusion models.
+"""Shared building blocks for the port's diffusion and grounding models.
 
 Counterpart of `anyedit_tpu/models/layers.py`. Conventions:
   * convolutions run channels-first (NCHW); token sequences are (B, L, C);
@@ -163,6 +163,37 @@ def Conv3x3(in_channels: int, out_channels: int, stride: int = 1,
 def Conv1x1(in_channels: int, out_channels: int, dtype=torch.bfloat16,
             device=None) -> nn.Conv2d:
     return nn.Conv2d(in_channels, out_channels, 1, dtype=dtype, device=device)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that first casts its input to the weight's dtype, as a
+    Flax `Dense(dtype=...)` does (the grounding models mix fp32 and bf16
+    activations, as JAX's type promotion leaves them)."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
+class SameConv2d(nn.Conv2d):
+    """nn.Conv2d with Flax's default "SAME" padding (out = ceil(in /
+    stride); the extra pixel of an odd total goes after, so a stride-2 3x3
+    conv of an even map pads (0, 1)) and the input cast to the weight's
+    dtype. NCHW."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True, dtype=torch.bfloat16, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         bias=bias, dtype=dtype, device=device)
+
+    def forward(self, x):
+        pads = []
+        for size, k, s in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
+                              reversed(self.stride)):
+            total = max((-(-size // s) - 1) * s + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        if any(pads):
+            x = F.pad(x, pads)
+        return super().forward(x.to(self.weight.dtype))
 
 
 class GEGLU(nn.Module):

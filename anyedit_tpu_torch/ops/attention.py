@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from anyedit_tpu_torch.ops import _build
-from anyedit_tpu_torch.ops.quant import absmax_scale, quantize_int8
+from anyedit_tpu_torch.ops.quant import absmax_scale, div127, quantize_int8
 
 _LOG2E = 1.4426950408889634
 # Logit clamp of the max-free softmax (base-2 logits above 80 saturate
@@ -222,7 +222,7 @@ def flash_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + pv
         m = m_new
-    out = acc * (sv / 127.0) / torch.clamp(l, min=1e-30)
+    out = acc * div127(sv) / torch.clamp(l, min=1e-30)
     return out.to(q.dtype)
 
 

@@ -32,7 +32,9 @@ from anyedit_tpu_torch.ops.attention import (
     flash_nomax, flash_nomax_plain, sdpa,
 )
 from anyedit_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
-from anyedit_tpu_torch.ops.quant import int8_conv2d, int8_matmul
+from anyedit_tpu_torch.ops.quant import (
+    absmax_scale, int8_conv2d, int8_matmul, quantize_int8,
+)
 
 
 def time_ms(fn, iters: int = 10) -> float:
@@ -323,4 +325,37 @@ def check_int8_contraction(kind: str, device, seed: int = 4, iters: int = 10) ->
     res["plain_ms"] = time_ms(plain, iters)
     res["bf16_ms"] = time_ms(bf16, iters)
     res["tops"] = flops / res["ms"] * 1e-9
+    return res
+
+
+def check_div_ties(device, seed: int = 4) -> dict:
+    """The W8A8 quantization on the card (absmax scale, then codes) against
+    the CPU's, byte for byte, on two tensors full of x / s = 63.5 ties
+    (x = absmax / 2, s = absmax / 127): K4's v at (24, 4096, 40) bf16,
+    quantized per (head, channel) as `_quantize_kv` does, and 65,536 rows
+    of 64 bf16 values, each row holding its absmax and 32 values of
+    +-absmax / 2. `mismatches` counts the codes that differ from the CPU's;
+    `scalar_div_mismatches` those of scales taken as `amax / 127.0` on the
+    card (PyTorch's reciprocal multiply, the parent's `absmax_scale`);
+    `ties` the elements whose quotient lies within 1e-5 of +-63.5."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn(24, 4096, 40, generator=g, device=device).to(torch.bfloat16)
+    amax = (1 + torch.rand(65536, 1, generator=g, device=device)).to(torch.bfloat16)
+    rows = ((torch.rand(65536, 64, generator=g, device=device) * 2 - 1) * 0.99 * amax
+            ).to(torch.bfloat16)
+    rows[:, :1] = amax
+    rows[:, 1:17] = amax / 2
+    rows[:, 17:33] = -amax / 2
+    res = {"mismatches": 0, "scalar_div_mismatches": 0, "ties": 0, "codes": 0}
+    for x, dim in ((v, 1), (rows, -1)):
+        ref = quantize_int8(x.cpu(), absmax_scale(x.cpu(), dim))
+        scale = absmax_scale(x, dim)
+        got = quantize_int8(x, scale).cpu()
+        amax_x = torch.linalg.vector_norm(x, float("inf"), dim=dim, keepdim=True).float()
+        scalar = quantize_int8(x, torch.clamp(amax_x, min=1e-8) / 127.0).cpu()
+        q = (x.double() / scale.double()).abs()
+        res["mismatches"] += int((got != ref).sum())
+        res["scalar_div_mismatches"] += int((scalar != ref).sum())
+        res["ties"] += int(((q - 63.5).abs() < 1e-5).sum())
+        res["codes"] += x.numel()
     return res

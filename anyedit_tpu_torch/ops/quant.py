@@ -22,6 +22,8 @@ float64, which is exact for these sums.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,16 +31,36 @@ from torch import nn
 _EPS = 1e-8
 
 
+@functools.lru_cache(maxsize=None)
+def _c127(device: torch.device) -> torch.Tensor:
+    # a normal tensor even when first asked for under inference mode (the
+    # zoo's), so that autograd may still save it as a divisor later
+    with torch.inference_mode(False):
+        return torch.tensor(127.0, device=device)
+
+
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 in fp32, correctly rounded on every device (the CPU's and
+    JAX's quotient). PyTorch's CUDA kernel turns a division by a Python
+    scalar into a multiplication by the scalar's rounded reciprocal, which
+    misses the IEEE quotient by one unit in the last place for some t, and
+    the x / s = 63.5 ties of the absmax scales then round to the other
+    code. A divisor that is a tensor on t's device takes the IEEE
+    division, in the same one launch."""
+    return t / _c127(t.device)
+
+
 def absmax_scale(x: torch.Tensor, dim=None) -> torch.Tensor:
     """Symmetric quantization scale so that absmax(x) maps to 127 (fp32,
     reduced dims kept). The max-norm is exact in x's own dtype, so it is
     taken there and upcast after."""
     amax = torch.linalg.vector_norm(x, float("inf"), dim=dim, keepdim=True).float()
-    return torch.clamp(amax, min=_EPS) / 127.0
+    return div127(torch.clamp(amax, min=_EPS))
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    # x / scale promotes x to fp32 exactly, then divides (as x.astype(f32) / s)
+    # x / scale promotes x to fp32 exactly, then divides (as x.astype(f32) / s);
+    # a tensor divisor takes CUDA's IEEE division
     q = torch.div(x, scale).round_().clamp_(-127, 127)
     return q.to(torch.int8)
 

@@ -82,6 +82,13 @@ def denormalize_to_u8(img: torch.Tensor) -> torch.Tensor:
     return torch.round(x).to(torch.uint8)
 
 
+def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float (..., C=3) -> ImageNet-normalized (detector convention)."""
+    mean = torch.tensor([0.485, 0.456, 0.406], dtype=img01.dtype, device=img01.device)
+    std = torch.tensor([0.229, 0.224, 0.225], dtype=img01.dtype, device=img01.device)
+    return (img01 - mean) / std
+
+
 def to_u8(x: torch.Tensor) -> torch.Tensor:
     """Float -> uint8 the way a JAX `astype(uint8)` converts: saturate to
     [0, 255], then truncate toward zero."""

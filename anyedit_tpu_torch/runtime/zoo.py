@@ -1,5 +1,15 @@
-"""The IP2P editor slot of the model zoo (counterpart of the `ip2p()` slot of
-`anyedit_tpu/runtime/zoo.py`).
+"""The model zoo's grounding and IP2P editor slots (counterpart of the
+`grounder()`, `ip2p()` and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
+
+`ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
+count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
+normalisation, the phrase as a caption ending in "." through GroundingDINO,
+the phrase's token span (or the whole caption when the phrase is not
+found), box selection and NMS, SAM at its own 1024 bucket with the boxes
+scaled into its space, the best of each box's masks by predicted IoU, a
+bilinear resize back to (h, w), and the per-mode combination; `None` when no
+box is kept. The JAX zoo's `ground.batch` (the chunk-mode executor's) is
+not ported yet.
 
 `ModelZoo(cfg, device).ip2p()` returns `edit(image_u8, instruction, mask01,
 steps, s_txt, s_img, seed)`: lanczos resize to the canvas -> VAE encode ->
@@ -22,15 +32,24 @@ import torch
 
 from anyedit_tpu_torch.core.config import CanvasConfig
 from anyedit_tpu_torch.diffusion import ip2p_edit
+from anyedit_tpu_torch.edits.types import Toolbox
+from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
+from anyedit_tpu_torch.grounding.text import SimpleVocabTokenizer, phrase_token_spans
+from anyedit_tpu_torch.models.bert import TINY_BERT
 from anyedit_tpu_torch.models.clip import CLIP_L_TEXT, TINY_TEXT, CLIPTextConfig, CLIPTextEncoder
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
+from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
+from anyedit_tpu_torch.models.sam import (
+    SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
+)
+from anyedit_tpu_torch.models.swin import TINY_SWIN
 from anyedit_tpu_torch.models.unet_sd import (
     SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
 from anyedit_tpu_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
-    denormalize_to_u8, normalize_to_unit, resize_image, to_u8,
+    denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
 )
 from anyedit_tpu_torch.schedulers import make_noise_schedule
 from anyedit_tpu_torch.weights import bridge
@@ -39,9 +58,12 @@ from anyedit_tpu_torch.weights.init import seeded_init_
 
 @dataclasses.dataclass
 class ZooConfig:
-    """The fields of the JAX `ZooConfig` that the IP2P slot reads."""
+    """The fields of the JAX `ZooConfig` that the grounding and IP2P slots read."""
 
     canvas: CanvasConfig = CanvasConfig()
+    gdino: GDINOConfig = GDINO_SWINB
+    sam: SAMConfig = SAM_VIT_H
+    box_threshold: float = 0.25
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     vae: VAEConfig = SD_VAE
     text: CLIPTextConfig = CLIP_L_TEXT
@@ -55,12 +77,20 @@ class ZooConfig:
 
 
 def tiny_zoo_config() -> ZooConfig:
-    """The IP2P fields of the JAX package's hermetic tiny config
-    (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny fp32 models, 64 px canvas."""
+    """The grounding and IP2P fields of the JAX package's hermetic tiny
+    config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
+    canvas. Two differences: every tower is fp32 (the JAX config leaves the
+    tiny Swin and BERT in bf16), and BERT's vocabulary is 30522, so that the
+    hash tokenizer's ids index the table (at TINY_BERT's 128 they fall
+    outside it, which `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
     return ZooConfig(
         canvas=CanvasConfig(edit_size=64, grounding_size=64, sam_size=64,
                             latent_down=2),
+        gdino=dataclasses.replace(
+            TINY_GDINO, swin=dataclasses.replace(TINY_SWIN, **f32),
+            bert=dataclasses.replace(TINY_BERT, vocab_size=30522, **f32), **f32),
+        sam=dataclasses.replace(TINY_SAM, **f32),
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
         vae=dataclasses.replace(TINY_VAE, **f32),
         text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32))
@@ -73,9 +103,9 @@ class ModelZoo:
     a model on "cuda" raises where CUDA is absent (no fallback to the CPU).
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
-    "unet_ip2p", "vae" and "clip_text"; a missing slot gets a seeded init.
-    Tokens come from the hash tokenizer the JAX zoo uses with no weights
-    dir."""
+    "gdino", "sam", "unet_ip2p", "vae" and "clip_text"; a missing slot gets
+    a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
+    with no weights dir."""
 
     def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
                  seed: int = 0, params: Optional[Mapping[str, Any]] = None):
@@ -84,6 +114,7 @@ class ModelZoo:
         self.seed = seed
         self.params = dict(params or {})
         self._cache: dict[str, Any] = {}
+        self.tokenizer = SimpleVocabTokenizer()
         self.clip_tokenizer = SimpleClipTokenizer(self.cfg.text.vocab_size)
 
     def _get(self, name: str, build: Callable[[], Any]):
@@ -139,6 +170,15 @@ class ModelZoo:
             AutoencoderKL(vcfg, device=self.device), "vae",
             lambda t: bridge.vae_state_dict(t, len(vcfg.block_channels))))
 
+    def _gdino(self) -> GroundingDINO:
+        return self._get("gdino", lambda: self._load(
+            GroundingDINO(self.cfg.gdino, device=self.device), "gdino",
+            bridge.gdino_state_dict))
+
+    def _sam(self) -> SAM:
+        return self._get("sam", lambda: self._load(
+            SAM(self.cfg.sam, device=self.device), "sam", bridge.sam_state_dict))
+
     def _quantize_unet(self, ucfg: UNetConfig, slot: str) -> UNet2DCondition:
         """The W8A8 UNet from the slot's float parameters: bridged from
         `params`, or the seeded init drawn on the device in fp32 (the float
@@ -170,7 +210,68 @@ class ModelZoo:
             return unet, make_noise_schedule(device=self.device)
         return self._get("ip2p_core", build)
 
-    # ---- the slot --------------------------------------------------------
+    # ---- the slots -------------------------------------------------------
+    def detector_inputs(self, image_u8, phrase: str):
+        """(pixels (1, S, S, 3), ids (1, T), mask (1, T), span) for the
+        detector: bilinear resize to the grounding bucket, ImageNet
+        normalisation, the phrase as a caption ending in "." (ids on the
+        zoo's device), and the phrase's token span, or (1, max(2, n - 1))
+        when the phrase is not in the tokens."""
+        c = self.cfg
+        size, tlen = c.canvas.grounding_size, c.gdino.max_text_len
+        img = torch.as_tensor(image_u8, device=self.device).float()
+        pixels = imagenet_normalize(resize_image(img / 255.0, size, size, "bilinear"))[None]
+        caption = phrase if phrase.endswith(".") else phrase + "."
+        enc = self.tokenizer.encode(caption)
+        n = min(len(enc.ids), tlen)
+        ids = torch.zeros((1, tlen), dtype=torch.long)
+        ids[0, :n] = torch.tensor(enc.ids[:n])
+        span = phrase_token_spans(enc, caption, [phrase])[0]
+        span = span if span[1] > span[0] else (1, max(2, n - 1))
+        return (pixels, ids.to(self.device), (torch.arange(tlen)[None] < n).to(self.device),
+                span)
+
+    def sam_inputs(self, image_u8):
+        """SAM's pixels (1, S, S, 3) at its own bucket (bilinear, SAM's mean
+        and std) and the xyxy scale from image pixels into that space."""
+        s = self.cfg.sam.img_size
+        h, w = image_u8.shape[:2]
+        img = torch.as_tensor(image_u8, device=self.device).float()
+        mean = torch.tensor(SAM_PIXEL_MEAN, device=self.device)
+        std = torch.tensor(SAM_PIXEL_STD, device=self.device)
+        pixels = ((resize_image(img, s, s, "bilinear") - mean) / std)[None]
+        return pixels, torch.tensor([s / w, s / h, s / w, s / h], device=self.device)
+
+    def grounder(self):
+        def build():
+            c = self.cfg
+            gd, sam = self._gdino(), self._sam()
+            dev = self.device
+
+            @torch.inference_mode()
+            def ground(image_u8, phrase: str, mode: str = "merge",
+                       count_k: int | None = None):
+                """-> GroundingResult on the zoo's device, or None."""
+                h, w = image_u8.shape[:2]
+                pixels, ids, mask, span = self.detector_inputs(image_u8, phrase)
+                logits, boxes = gd(pixels, ids, mask)
+                bx, sc, keep = select_boxes(logits[0], boxes[0], span, (h, w),
+                                            box_threshold=c.box_threshold)
+                if not bool(keep.any()):
+                    return None
+                sam_px, scale = self.sam_inputs(image_u8)
+                masks, iou = sam.decode_boxes(sam.encode(sam_px), (bx * scale)[None])
+                sel = masks[torch.arange(masks.shape[0], device=dev), iou.argmax(dim=-1)]
+                sel = resize_image(sel[..., None], h, w, "bilinear")[..., 0]
+                sel = torch.where(keep[:, None, None], sel, -1.0)
+                return grounding_result(sel, bx, sc, keep, (h, w), mode, count_k)
+            return ground
+        return self._get("ground", build)
+
+    def toolbox(self) -> Toolbox:
+        """A Toolbox with the slots ported so far: `ground` and `ip2p`."""
+        return Toolbox(ground=self.grounder(), ip2p=self.ip2p())
+
     def ip2p(self):
         def build():
             c = self.cfg

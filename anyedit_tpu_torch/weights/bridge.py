@@ -26,17 +26,22 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-# layout transforms, named by the forward converter's transform
-_CONV, _LINEAR, _ID = "conv", "linear", "id"
+# layout transforms, named by the forward converter's transform. _CONV also
+# serves SAM's ConvTranspose (`t_convT`): (kH, kW, O, I) <-> torch (I, O, kH,
+# kW) is the same permutation. _LEAD is `t_pos_embed` (and the no-mask
+# embedding's reshape): the torch tensor has a leading axis of 1.
+_CONV, _LINEAR, _ID, _LEAD = "conv", "linear", "id", "lead"
 _INVERSE: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (3, 2, 0, 1)),     # HWIO -> OIHW
     _LINEAR: lambda w: np.transpose(w),                  # (in, out) -> (out, in)
     _ID: lambda w: w,
+    _LEAD: lambda w: w[None],
 }
 _FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (2, 3, 1, 0)),     # OIHW -> HWIO
     _LINEAR: lambda w: np.transpose(w),
     _ID: lambda w: w,
+    _LEAD: lambda w: w[0],
 }
 
 
@@ -55,14 +60,31 @@ def _leaves(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
 
 
 def _bridge(tree: Mapping[str, Any], key_fn) -> dict[str, torch.Tensor]:
-    out: dict[str, torch.Tensor] = {}
+    """key_fn(path) -> (key, transform) or (key, transform, (i, n)). The
+    3-tuple form marks the leaf as part i of n stacked along dim 0 of one
+    torch tensor (the thirds of a fused `in_proj_weight` / `in_proj_bias`);
+    a tuple of keys splits the leaf's rows one per key (SAM's stacked box
+    corners)."""
+    out: dict[str, Any] = {}
+    parts: dict[str, list] = {}
     for path, leaf in _leaves(tree):
-        key, tf = key_fn(path)
-        if key in out:
-            raise KeyError(f"two Flax leaves map to {key!r}")
+        key, tf, *part = key_fn(path)
         w = _INVERSE[tf](_keep_dtype(leaf))
-        out[key] = torch.from_numpy(np.ascontiguousarray(w))
-    return out
+        if part:
+            i, n = part[0]
+            parts.setdefault(key, [None] * n)[i] = w
+            continue
+        items = [(key, w)] if isinstance(key, str) else \
+            [(k, w[i:i + 1]) for i, k in enumerate(key)]
+        for k, r in items:
+            if k in out:
+                raise KeyError(f"two Flax leaves map to {k!r}")
+            out[k] = r
+    for key, ws in parts.items():
+        if key in out or any(w is None for w in ws):
+            raise KeyError(f"the parts of {key!r} do not add up")
+        out[key] = np.concatenate(ws, axis=0)
+    return {k: torch.from_numpy(np.ascontiguousarray(w)) for k, w in out.items()}
 
 
 def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
@@ -75,8 +97,15 @@ def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
         if isinstance(v, Mapping):
             out[k] = _to_tree(v, sd, key_fn, path)
             continue
-        key, tf = key_fn(path)
-        w = _FORWARD[tf](sd[key].detach().cpu().numpy())
+        key, tf, *part = key_fn(path)
+        if isinstance(key, str):
+            w = sd[key].detach().cpu().numpy()
+        else:
+            w = np.concatenate([sd[kk].detach().cpu().numpy() for kk in key], axis=0)
+        if part:
+            i, n = part[0]
+            w = np.split(w, n, axis=0)[i]
+        w = _FORWARD[tf](w)
         if w.shape != tuple(v.shape):
             raise KeyError(f"{key}: shape {w.shape} vs the tree's {tuple(v.shape)}")
         out[k] = np.ascontiguousarray(w)
@@ -85,7 +114,7 @@ def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
 
 def _kinds(leaf: str):
     suff = {"kernel": "weight", "kernel_q": "weight", "scale": "weight",
-            "bias": "bias", "kernel_scale": "kernel_scale"}[leaf]
+            "bias": "bias", "kernel_scale": "kernel_scale"}.get(leaf, leaf)
     kernel = leaf in ("kernel", "kernel_q")
     conv = lambda k: (f"{k}.{suff}", _CONV if kernel else _ID)
     lin = lambda k: (f"{k}.{suff}", _LINEAR if kernel else _ID)
@@ -242,3 +271,224 @@ def _clip_text_key(path: tuple[str, ...]) -> tuple[str, str]:
 def clip_text_state_dict(tree: Mapping[str, Any]):
     """Flax `CLIPTextEncoder` params -> the port's `CLIPTextEncoder` state dict."""
     return _bridge(tree, _clip_text_key)
+
+
+# ---- BERT (convert.py `_bert_key`) ------------------------------------------
+
+def _bert_key(p: list[str], prefix: str) -> tuple[str, str]:
+    name = p[0]
+    emb = {"tok": "word_embeddings", "pos": "position_embeddings",
+           "type": "token_type_embeddings"}
+    if name in emb:
+        return f"{prefix}embeddings.{emb[name]}.weight", _ID
+    _, lin, norm = _kinds(p[-1])
+    if name == "emb_ln":
+        return norm(f"{prefix}embeddings.LayerNorm")
+    if m := re.match(r"layer_(\d+)$", name):
+        lb = f"{prefix}encoder.layer.{m[1]}"
+        return {"q": lin(f"{lb}.attention.self.query"),
+                "k": lin(f"{lb}.attention.self.key"),
+                "v": lin(f"{lb}.attention.self.value"),
+                "attn_out": lin(f"{lb}.attention.output.dense"),
+                "ln1": norm(f"{lb}.attention.output.LayerNorm"),
+                "fc1": lin(f"{lb}.intermediate.dense"),
+                "fc2": lin(f"{lb}.output.dense"),
+                "ln2": norm(f"{lb}.output.LayerNorm")}[p[1]]
+    raise KeyError(f"unmapped BERT param {'/'.join(p)}")
+
+
+# ---- Swin (convert.py `_swin_key`) ------------------------------------------
+
+def _swin_key(p: list[str], prefix: str) -> tuple[str, str]:
+    """The official Swin keys. One difference from convert.py's `_swin_key`:
+    the patch merging after stage I is `layers.I.downsample` (the official
+    layout), where convert.py names it `layers.{I-1}.downsample`."""
+    name = p[0]
+    conv, lin, norm = _kinds(p[-1])
+    if name == "patch_embed":
+        return conv(f"{prefix}patch_embed.proj")
+    if name == "patch_ln":
+        return norm(f"{prefix}patch_embed.norm")
+    if m := re.match(r"stage(\d+)_block(\d+)$", name):
+        lb = f"{prefix}layers.{m[1]}.blocks.{m[2]}"
+        if p[1] == "rel_bias":
+            return f"{lb}.attn.relative_position_bias_table", _ID
+        return {"ln1": norm(f"{lb}.norm1"), "qkv": lin(f"{lb}.attn.qkv"),
+                "proj": lin(f"{lb}.attn.proj"), "ln2": norm(f"{lb}.norm2"),
+                "mlp1": lin(f"{lb}.mlp.fc1"), "mlp2": lin(f"{lb}.mlp.fc2")}[p[1]]
+    if m := re.match(r"merge_(ln|fc)(\d+)$", name):
+        down = f"{prefix}layers.{m[2]}.downsample"
+        return norm(f"{down}.norm") if m[1] == "ln" else lin(f"{down}.reduction")
+    if m := re.match(r"out_ln(\d+)$", name):
+        return norm(f"{prefix}norm{m[1]}")
+    raise KeyError(f"unmapped Swin param {'/'.join(p)}")
+
+
+# ---- GroundingDINO (convert.py `_gdino_key`) --------------------------------
+
+def _gdino_key(path: tuple[str, ...]):
+    p = _strip(path)
+    name, leaf = p[0], p[-1]
+    if name == "bert":
+        return _bert_key(p[1:], "bert.")
+    if name == "swin":
+        return _swin_key(p[1:], "backbone.0.")
+    if name in ("level_embed", "tgt_embed"):
+        return {"level_embed": "transformer.level_embed",
+                "tgt_embed": "transformer.tgt_embed.weight"}[name], _ID
+    conv, lin, norm = _kinds(leaf)
+
+    def fused(base, idx):
+        """One third of torch's fused in_proj_{weight,bias}."""
+        tf = _LINEAR if leaf == "kernel" else _ID
+        return f"{base}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}", tf, (idx, 3)
+
+    def deform(base, sub):
+        return lin(f"{base}." + {"value_proj": "value_proj",
+                                 "sampling_offsets": "sampling_offsets",
+                                 "attn_weights": "attention_weights",
+                                 "out_proj": "output_proj"}[sub])
+
+    def ffn(base, sub, ln):
+        return {"fc1": lin(f"{base}.linear1"), "fc2": lin(f"{base}.linear2"),
+                "ln": norm(f"{base}.{ln}")}[sub]
+
+    top = {"feat_map": "feat_map", "mem_proj": "transformer.enc_output",
+           "mem_ln": "transformer.enc_output_norm",
+           "dec_norm": "transformer.decoder.norm"}
+    if name in top:
+        return (norm if "norm" in top[name] else lin)(top[name])
+    if m := re.match(r"in_(proj|ln)_(\d+)$", name):
+        return conv(f"input_proj.{m[2]}.0") if m[1] == "proj" else norm(f"input_proj.{m[2]}.1")
+    if m := re.match(r"ref_point_fc(\d)$", name):
+        return lin(f"transformer.decoder.ref_point_head.layers.{int(m[1]) - 1}")
+    if m := re.match(r"(enc_box_head|dec_box_head_(\d+))$", name):
+        base = "transformer.enc_out_bbox_embed" if m[2] is None else f"bbox_embed.{m[2]}"
+        return lin(f"{base}.layers.{'fc1 fc2 fc3'.split().index(p[1])}")
+    if m := re.match(r"enc_(\d+)$", name):
+        tl = f"transformer.encoder.text_layers.{m[1]}"
+        fl = f"transformer.encoder.fusion_layers.{m[1]}"
+        vl = f"transformer.encoder.layers.{m[1]}"
+        sub = p[1]
+        if sub == "fusion":
+            s2 = p[2]
+            if s2 in ("gamma_i", "gamma_t"):
+                return f"{fl}.gamma_{'v' if s2 == 'gamma_i' else 'l'}", _ID
+            if s2 in ("ln_i", "ln_t"):
+                return norm(f"{fl}.layer_norm_{'v' if s2 == 'ln_i' else 'l'}")
+            return lin(f"{fl}.attn." + {"qi": "v_proj", "kt": "l_proj",
+                                        "vt": "values_l_proj", "vi": "values_v_proj",
+                                        "oi": "out_v_proj", "ot": "out_l_proj"}[s2])
+        if sub in ("tq", "tk", "tv"):
+            return fused(f"{tl}.self_attn", "qkv".index(sub[1]))
+        if sub == "to":
+            return lin(f"{tl}.self_attn.out_proj")
+        if sub in ("txt_ln", "img_ln"):
+            return norm(f"{tl if sub == 'txt_ln' else vl}.norm1")
+        if sub in ("txt_ffn", "img_ffn"):
+            return ffn(tl if sub == "txt_ffn" else vl, p[2], "norm2")
+        if sub == "deform":
+            return deform(f"{vl}.self_attn", p[2])
+    if m := re.match(r"dec_(\d+)$", name):
+        dl = f"transformer.decoder.layers.{m[1]}"
+        sub = p[1]
+        if sub in ("sq", "sk", "sv", "cq", "ck", "cv"):
+            att = "self_attn" if sub[0] == "s" else "ca_text"
+            return fused(f"{dl}.{att}", "qkv".index(sub[1]))
+        if sub in ("so", "co"):
+            return lin(f"{dl}.{'self_attn' if sub == 'so' else 'ca_text'}.out_proj")
+        if sub in ("ln_sa", "ln_ta", "ln_da"):
+            return norm(f"{dl}." + {"ln_sa": "norm2", "ln_ta": "catext_norm",
+                                    "ln_da": "norm1"}[sub])
+        if sub == "ffn":
+            return ffn(dl, p[2], "norm3")
+        if sub == "deform":
+            return deform(f"{dl}.cross_attn", p[2])
+    raise KeyError(f"unmapped GDINO param {'/'.join(path)}")
+
+
+def gdino_state_dict(tree: Mapping[str, Any]):
+    """Flax `GroundingDINO` params -> the port's `GroundingDINO` state dict
+    (the official checkpoint's keys, "module." dropped)."""
+    return _bridge(tree, _gdino_key)
+
+
+def gdino_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's GroundingDINO state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _gdino_key)
+
+
+# ---- SAM (convert.py `_sam_key`) --------------------------------------------
+
+_SAM_ATTN = {"self": "self_attn", "t2i": "cross_attn_token_to_image",
+             "i2t": "cross_attn_image_to_token"}
+_SAM_PROJ = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "out_proj"}
+
+
+def _sam_key(path: tuple[str, ...]):
+    p = _strip(path)
+    tower, name, leaf = p[0], p[1], p[-1]
+    if tower == "encoder":
+        b = "image_encoder"
+        if name == "pos_emb":
+            return f"{b}.pos_embed", _LEAD
+        conv, lin, norm = _kinds(leaf)
+        if name == "patch_embed":
+            return conv(f"{b}.patch_embed.proj")
+        if m := re.match(r"block_(\d+)$", name):
+            lb = f"{b}.blocks.{m[1]}"
+            sub = p[2]
+            if sub in ("rel_h", "rel_w"):
+                return f"{lb}.attn.rel_pos_{sub[-1]}", _ID
+            return {"ln1": norm(f"{lb}.norm1"), "ln2": norm(f"{lb}.norm2"),
+                    "qkv": lin(f"{lb}.attn.qkv"), "proj": lin(f"{lb}.attn.proj"),
+                    "mlp1": lin(f"{lb}.mlp.lin1"), "mlp2": lin(f"{lb}.mlp.lin2")}[sub]
+        neck = {"neck1": conv(f"{b}.neck.0"), "neck_ln1": norm(f"{b}.neck.1"),
+                "neck2": conv(f"{b}.neck.2"), "neck_ln2": norm(f"{b}.neck.3")}
+        if name in neck:
+            return neck[name]
+    if tower == "prompt":
+        b = "prompt_encoder"
+        if name == "pe_gaussian":
+            return f"{b}.pe_layer.positional_encoding_gaussian_matrix", _ID
+        if name == "corner_emb":   # rows: top-left (2), bottom-right (3)
+            return (f"{b}.point_embeddings.2.weight", f"{b}.point_embeddings.3.weight"), _ID
+        if name == "no_mask_emb":
+            return f"{b}.no_mask_embed.weight", _LEAD
+    if tower == "decoder":
+        b = "mask_decoder"
+        if name in ("iou_token", "mask_tokens"):
+            return f"{b}.{name}.weight", _ID
+        conv, lin, norm = _kinds(leaf)
+        if m := re.match(r"block_(\d+)$", name):
+            lb = f"{b}.transformer.layers.{m[1]}"
+            sub = p[2]
+            if am := re.match(r"(self|t2i|i2t)_(q|k|v|o)$", sub):
+                return lin(f"{lb}.{_SAM_ATTN[am[1]]}.{_SAM_PROJ[am[2]]}")
+            if sub in ("ln1", "ln2", "ln3", "ln4"):
+                return norm(f"{lb}.norm{sub[-1]}")
+            return lin(f"{lb}.mlp.lin{sub[-1]}")           # mlp1, mlp2
+        if fm := re.match(r"fin_(q|k|v|o)$", name):
+            return lin(f"{b}.transformer.final_attn_token_to_image.{_SAM_PROJ[fm[1]]}")
+        up = {"fin_ln": norm(f"{b}.transformer.norm_final_attn"),
+              "up1": conv(f"{b}.output_upscaling.0"), "up_ln": norm(f"{b}.output_upscaling.1"),
+              "up2": conv(f"{b}.output_upscaling.3")}
+        if name in up:
+            return up[name]
+        if m := re.match(r"hyper_(\d+)_(\d+)$", name):
+            return lin(f"{b}.output_hypernetworks_mlps.{m[1]}.layers.{m[2]}")
+        if m := re.match(r"iou_(\d+)$", name):
+            return lin(f"{b}.iou_prediction_head.layers.{m[1]}")
+    raise KeyError(f"unmapped SAM param {'/'.join(path)}")
+
+
+def sam_state_dict(tree: Mapping[str, Any]):
+    """Flax `SAM` params -> the port's `SAM` state dict (the official
+    segment-anything keys; the stacked box corners become
+    `point_embeddings.2` / `.3`)."""
+    return _bridge(tree, _sam_key)
+
+
+def sam_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's SAM state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _sam_key)

@@ -6,7 +6,9 @@ runs:
     variance 1/fan_in);
   * biases: zero; GroupNorm / LayerNorm scales one, biases zero;
   * token embeddings: Flax `Embed`'s truncated normal, variance 1/features;
-  * the CLIP position embedding: normal(0.01) (the JAX `pos_emb` param).
+  * the CLIP position embedding: normal(0.01) (the JAX `pos_emb` param);
+  * a module's `param_init` entries (the grounding models' embeddings,
+    tables and gates): normal(std) or a constant, as their Flax params.
 
 Values differ from the JAX package's (torch and jax.random draw different
 numbers); parity tests load JAX's params through `weights/bridge.py`.
@@ -40,9 +42,9 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, sub in module.named_modules():
-        if isinstance(sub, (nn.Linear, nn.Conv2d)):
+        if isinstance(sub, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = sub.weight
-            fan_in = w[0].numel()   # in * kh * kw
+            fan_in = w[0].numel()   # in * kh * kw (a transposed conv: out * kh * kw)
             w.copy_(_trunc_normal(w.shape, fan_in, gen, device))
             if sub.bias is not None:
                 sub.bias.zero_()
@@ -55,4 +57,12 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(sub, (GroupNorm, LayerNorm)):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
+        # a module's own parameters with a Flax initializer of their own:
+        # {name: std} draws normal(0, std), {name: ("const", v)} fills v
+        for pname, spec in getattr(sub, "param_init", {}).items():
+            p = getattr(sub, pname)
+            if isinstance(spec, tuple):
+                p.fill_(spec[1])
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * spec)
     return module

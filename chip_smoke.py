@@ -7,17 +7,23 @@ Phases, each printing its own line with the seconds it took:
   1. card: CUDA must be available; prints nvidia-smi's name and power limit;
   2. build: compiles anyedit_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
      nvcc per source, in parallel);
-  3. kernels: K1 (flash_nomax), K2 (GroupNorm+SiLU), K3 (online-softmax
+  3. kernels: K1 (flash_nomax), K2 (GroupNorm+SiLU; also without SiLU at
+     the four GroundingDINO input-projection shapes), K3 (online-softmax
      flash on tensor cores) and K4 (int8 flash over 512-key blocks) against
      their plain PyTorch versions at the paths' shapes, TF32 off; K4 also
      against fp32 sdpa. Each line also carries the kernel's bound (roofline,
      with the exp term) and the time of the one PyTorch call that computes
      the same function, where there is one;
   4. int8: the W8A8 int32 contraction (int8 im2col + torch._int_mm) equals
-     a float64 contraction bit for bit, for a full-width conv and dense;
+     a float64 contraction bit for bit, for a full-width conv and dense; the
+     W8A8 scales and codes of tensors full of x / s = 63.5 ties equal the
+     CPU's byte for byte (PyTorch's CUDA division by a Python scalar does
+     not);
   5. reference: the slice at the tiny config in bf16 on the card against
      the same slice in fp32 on the CPU (plain versions), same weights and
-     noise, bounded by the CPU's own bf16 error;
+     noise, bounded by the CPU's own bf16 error; then the tiny grounder the
+     same way: box scores within twice the CPU's own bf16 distance, merged
+     mask IoU >= 0.9;
   6. slice: the full-width SD1.5-IP2P + SD-VAE + CLIP-L editor (seeded
      random weights drawn on the card) serves two 100-step edit requests
      through `ModelZoo.ip2p()`; K1 must launch exactly 10 times per UNet
@@ -31,7 +37,27 @@ Phases, each printing its own line with the seconds it took:
      UNet call against the bf16 one (cosine > 0.95);
   9. k4 path: one W8A8 UNet call at batch 3 with a processor that sends the
      level-0/1 self-attention sites to `self_attn_int8`; K4 must launch
-     exactly 10 times; cosine > 0.95 against `int8_processor`.
+     exactly 10 times; cosine > 0.95 against `int8_processor`;
+ 10. grounding: the full-width GroundingDINO SwinB (800 px, 900 queries,
+     256 text tokens) and SAM ViT-H (1024) of `ModelZoo.grounder()`, seeded
+     weights drawn on the card, ground one 480x640 image: K2 exactly 4
+     launches (the input-projection norms), K1 none; finite logits and
+     boxes; masks of (h, w); the times of the detector, the SAM encode and
+     decode, and the whole call;
+ 11. color_alter record: one InstructionRecord through
+     `get_pipeline("color_alter")` on the same zoo (`box_threshold=0.0`, so
+     the random detector keeps boxes): success, a uint8 image of the
+     input's shape, a non-empty mask, the edited frame blended over the
+     input by the feathered mask (within one level of numpy's blend: the
+     check that holds the record's own output), the input's bytes wherever
+     the feathered mask is 0 (random weights give a speckle mask whose
+     feather may cover the whole frame, so this may hold on 0 pixels of the
+     record; the line says how many), the composite re-run on the record's
+     frames with the mask cut to a 64-px window keeping the input's bytes
+     beyond that window's feather, K1 exactly 1,000 launches and K2 one
+     request's
+     UNet and VAE launches plus the grounder's 4; seconds per record split
+     into ground / edit / composite.
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -52,6 +78,15 @@ K1_PER_UNET_CALL = 10   # 5 self-attention sites at 64x64 latents, 5 at 32x32
 K3_PER_UNET_CALL = 32   # 16 transformer blocks x (self + cross)
 K3_STEPS = 20
 K4_PER_UNET_CALL = 10   # the K1 sites, through self_attn_int8
+K2_PER_GROUND = 4       # GroundingDINO's input-projection GroupNorms
+# K2 at the GroundingDINO input projections: 256 channels in 32 groups at
+# strides 8, 16, 32 of the 800 px input and the extra stride-2 level
+K2_GDINO_SHAPES = [(1, 256, 100, 100), (1, 256, 50, 50), (1, 256, 25, 25),
+                   (1, 256, 13, 13)]
+GROUND_HW = (480, 640)
+RECORD = {"edit": "change the car to red", "edited object": "car",
+          "input": "a car parked on a street", "output": "a red car parked on a street",
+          "edit_type": "color_alter", "image_file": "street.jpg"}
 REQUESTS = [((512, 512), "make the sky a deep orange"),
             ((480, 640), "turn it into a winter scene")]
 # K3 shapes at batch 3 x 8 heads: self-attention (Lq = Lkv) and
@@ -128,6 +163,7 @@ def check_kernels(dev):
           ("(2, 320, 16, 16) silu |mean|/std=1e3 fp32",
            kc.check_group_norm((2, 320, 16, 16), True, dev, dtype=torch.float32,
                                magnitude=100.0))]
+    k2 += [(f"{s} gdino", kc.check_group_norm(s, False, dev)) for s in K2_GDINO_SHAPES]
     for shape, r in k2:
         print(f"K2 group_norm {shape}: max {r['max_abs_err']:.3e} mean "
               f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
@@ -180,6 +216,12 @@ def check_int8(dev):
         require(r["exact"] and r["dtype"] == "torch.int32",
                 f"the int8 {kind} contraction equals float64 bit for bit")
         rows.append((kind, r))
+    ties = kc.check_div_ties(dev)
+    print(f"int8 codes at x / s = 63.5 ties ({ties['ties']} ties in {ties['codes']} codes): "
+          f"{ties['mismatches']} differ from the CPU's; scales divided by a Python scalar "
+          f"on the card would give {ties['scalar_div_mismatches']}", flush=True)
+    require(ties["ties"] > 0 and ties["mismatches"] == 0,
+            "the W8A8 activation codes equal the CPU's at x / s = 63.5 ties")
     return rows
 
 
@@ -223,6 +265,49 @@ def check_reference(dev):
     require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
             and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
             "the card's bf16 slice is within twice the CPU's bf16 error")
+
+
+def check_grounding_reference(dev):
+    """The tiny grounder (`box_threshold=0.0`) in bf16 on the card against
+    the same grounder in fp32 on the CPU, same weights: the 32 candidate
+    scores within twice the CPU's own bf16 distance (at least one bf16
+    rounding of 1), and the merged masks at IoU >= 0.9."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = dataclasses.replace(tiny_zoo_config(), box_threshold=0.0)
+
+    def cfg(dtype):
+        g = tiny.gdino
+        return dataclasses.replace(
+            tiny, sam=dataclasses.replace(tiny.sam, dtype=dtype),
+            gdino=dataclasses.replace(g, swin=dataclasses.replace(g.swin, dtype=dtype),
+                                      bert=dataclasses.replace(g.bert, dtype=dtype),
+                                      dtype=dtype))
+
+    ref = ModelZoo(cfg(torch.float32), "cpu", seed=0)
+    cpu16 = ModelZoo(cfg(torch.bfloat16), "cpu", seed=0)
+    card16 = ModelZoo(cfg(torch.bfloat16), dev, seed=0)
+    for z in (cpu16, card16):
+        z._gdino().load_state_dict(ref._gdino().state_dict())
+        z._sam().load_state_dict(ref._sam().state_dict())
+    img = np.random.default_rng(3).integers(0, 256, (48, 40, 3), np.uint8)
+    out = {name: z.grounder()(img, "red square")
+           for name, z in (("ref", ref), ("cpu16", cpu16), ("card16", card16))}
+    require(all(g is not None for g in out.values()), "the tiny grounders keep boxes")
+    r = out["ref"]
+    err, iou = {}, {}
+    for k in ("cpu16", "card16"):
+        g = out[k]
+        err[k] = float((g.scores.cpu().float() - r.scores).abs().max())
+        m, rm = g.mask.cpu(), r.mask
+        iou[k] = float((m & rm).sum()) / max(float((m | rm).sum()), 1.0)
+        print(f"tiny grounder, {k} vs CPU fp32: scores max diff {err[k]:.3e}, "
+              f"merged-mask IoU {iou[k]:.4f} ({int(rm.sum())} pixels in the fp32 mask)",
+              flush=True)
+    require(err["card16"] <= 2 * max(err["cpu16"], 2.0 ** -8) and iou["card16"] >= 0.9,
+            "the card's bf16 grounder is within twice the CPU's bf16 score distance, "
+            "mask IoU >= 0.9")
 
 
 def cosine(a, b) -> float:
@@ -391,6 +476,143 @@ def k4_path(dev, qzoo):
     return launches, cos, step_ms
 
 
+def grounding(dev, zoo):
+    """One `ground()` of a 480x640 image on the full-width grounder: K2
+    exactly 4 launches and K1 none (counted after a warm-up call), a
+    result with masks of (h, w); then the detector on the same inputs
+    (finite logits and boxes), and CUDA-event times of the detector, the
+    SAM encode and the SAM decode of the 32 candidate boxes. Returns the
+    launches and the times (ms)."""
+    import torch
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    t0 = time.perf_counter()
+    ground = zoo.grounder()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    img = np.random.default_rng(2).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    ground(img, RECORD["edited object"])
+    torch.cuda.synchronize()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    t0 = time.perf_counter()
+    g = ground(img, RECORD["edited object"])
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    require(launches == {"flash_nomax": 0, "group_norm": K2_PER_GROUND},
+            f"grounding launched {launches}, want K1 0 and K2 {K2_PER_GROUND}")
+    require(g is not None and tuple(g.mask.shape) == GROUND_HW
+            and tuple(g.masks.shape[1:]) == GROUND_HW and int(g.count) > 0,
+            "ground() keeps boxes and returns masks of the image's shape")
+
+    gd, sam = zoo._gdino(), zoo._sam()
+    c = zoo.cfg
+    with torch.inference_mode():
+        pixels, ids, mask, _ = zoo.detector_inputs(img, RECORD["edited object"])
+        logits, boxes = gd(pixels, ids, mask)
+        require(tuple(logits.shape) == (1, c.gdino.num_queries, c.gdino.max_text_len)
+                and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(boxes).all()),
+                "the detector's logits and boxes are finite, of the full-width shapes")
+        sam_px, scale = zoo.sam_inputs(img)
+        emb = sam.encode(sam_px)
+        prompts = (g.boxes * scale)[None]
+        ms = {"gdino_forward_ms": time_ms(lambda: gd(pixels, ids, mask), iters=3),
+              "sam_encode_ms": time_ms(lambda: sam.encode(sam_px), iters=3),
+              "sam_decode_ms": time_ms(lambda: sam.decode_boxes(emb, prompts), iters=3),
+              "ground_ms": call_ms}
+    print(f"grounder (GDINO_SWINB 800 px, 900 queries, 256 tokens; SAM_VIT_H 1024) built "
+          f"on the card in {build_s:.2f} s; ground() of {GROUND_HW[0]}x{GROUND_HW[1]}: "
+          f"{call_ms:.1f} ms, {int(g.count)} of {g.valid.numel()} boxes kept, mask covers "
+          f"{float(g.mask.float().mean()):.3f}; detector {ms['gdino_forward_ms']:.1f} ms, "
+          f"SAM encode {ms['sam_encode_ms']:.1f} ms, SAM decode of {prompts.shape[1]} boxes "
+          f"{ms['sam_decode_ms']:.1f} ms; launches {launches}", flush=True)
+    return launches, ms
+
+
+def color_alter_record(dev, zoo, k2_per_request: int):
+    """One color_alter record through the registry on the full-width zoo.
+    Returns (launches, seconds by stage)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.global_ import crop_composite
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.ops.morphology import dilate, gaussian_blur
+
+    spent = {"ground": 0.0, "edit": 0.0}
+    frames = {}
+
+    def timed(stage, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t0
+            frames[stage] = out
+            return out
+        return call
+
+    tb = zoo.toolbox()
+    tb = Toolbox(ground=timed("ground", tb.ground), ip2p=timed("edit", tb.ip2p))
+    rec = InstructionRecord.from_json(RECORD)
+    img = np.random.default_rng(4).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    torch.cuda.synchronize()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    t0 = time.perf_counter()
+    out = get_pipeline(rec.edit_type)(tb, rec, img, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+
+    require(out.success, f"the color_alter record succeeded ({out.reason})")
+    require(out.edited is not None and out.edited.dtype == np.uint8
+            and out.edited.shape == img.shape, "a uint8 image of the input's shape")
+    require(out.mask is not None and bool(out.mask.any()), "a non-empty mask")
+    feather = gaussian_blur(dilate(torch.as_tensor(out.mask, device=dev).float(), 5),
+                            2.0).cpu().numpy()
+    untouched = feather == 0
+    require(np.array_equal(out.edited[untouched], img[untouched]),
+            "the input's bytes wherever the feathered mask is 0")
+    m = feather[..., None]
+    blend = frames["edit"].astype(np.float32) * m + img.astype(np.float32) * (1.0 - m)
+    blend_err = np.abs(out.edited.astype(np.int32)
+                       - np.clip(blend, 0, 255).astype(np.uint8).astype(np.int32)).max()
+    require(blend_err <= 1, "the record is the edit blended over the input by the "
+            "feathered mask (numpy, within one level)")
+    # Random weights make the merged mask a speckle over the whole frame, so
+    # its feathered mask may leave no pixel at 0. The composite is also held
+    # on the record's frames with the mask cut to a 64-px window at its first
+    # pixel: every pixel beyond that window's feather keeps the input's bytes.
+    ys, xs = np.nonzero(out.mask)
+    window = np.zeros_like(out.mask)
+    window[ys[0]:ys[0] + 64, xs[0]:xs[0] + 64] = out.mask[ys[0]:ys[0] + 64, xs[0]:xs[0] + 64]
+    cut = crop_composite(img, frames["edit"], torch.as_tensor(window, device=dev))
+    beyond = gaussian_blur(dilate(torch.as_tensor(window, device=dev).float(), 5),
+                           2.0).cpu().numpy() == 0
+    require(beyond.sum() > 0 and np.array_equal(cut[beyond], img[beyond]),
+            "the composite keeps the input's bytes beyond a windowed mask's feather")
+    want = {"flash_nomax": STEPS * K1_PER_UNET_CALL,
+            "group_norm": k2_per_request + K2_PER_GROUND}
+    require(launches == want, f"the record launched {launches}, want {want}")
+    seconds = {"record": total, **spent, "composite": total - sum(spent.values())}
+    print(f"color_alter record {GROUND_HW[0]}x{GROUND_HW[1]}: {total:.3f} s (ground "
+          f"{spent['ground']:.3f}, edit {spent['edit']:.3f} for {STEPS} steps, composite "
+          f"and the rest {seconds['composite']:.3f}); mask covers {out.mask.mean():.3f}, "
+          f"the feathered mask {float((feather > 0).mean()):.3f}; the record's output is "
+          f"the blend within {blend_err} level of numpy's; its byte check held on "
+          f"{int(untouched.sum())} pixels outside the feather; the composite re-run with "
+          f"the mask cut to a 64-px window kept {int(beyond.sum())} pixels beyond its "
+          f"feather byte for byte; launches {launches}", flush=True)
+    return launches, seconds
+
+
 def main() -> int:
     import torch
 
@@ -424,9 +646,12 @@ def main() -> int:
 
     with phase("reference"):
         check_reference(dev)
+        check_grounding_reference(dev)
 
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
-    zoo = ModelZoo(ZooConfig(), dev, seed=0)
+    # box_threshold 0.0: the random detector keeps boxes for the grounding
+    # phases; the IP2P slot does not read it
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
     with phase("slice"):
         launches, seconds, step_ms = serve_slice(dev, zoo, "bf16")
         print(f"{card_line}: {np.mean(seconds):.3f} s per request, "
@@ -448,6 +673,18 @@ def main() -> int:
 
     with phase("k4 path"):
         k4_launches, _, _ = k4_path(dev, qzoo)
+    del qzoo
+    torch.cuda.empty_cache()
+
+    with phase("grounding"):
+        g_launches, g_ms = grounding(dev, zoo)
+        print(f"{card_line}: ground() {g_ms['ground_ms']:.1f} ms", flush=True)
+
+    with phase("color_alter record"):
+        k2_per_request, rest = divmod(launches["group_norm"], len(REQUESTS))
+        require(rest == 0, "every slice request launched K2 equally often")
+        r_launches, r_seconds = color_alter_record(dev, zoo, k2_per_request)
+        print(f"{card_line}: {r_seconds['record']:.3f} s per color_alter record", flush=True)
 
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -472,8 +709,10 @@ def main() -> int:
         entry("flash_int8", "anyedit_tpu_torch/csrc/flash_int8.cu",
               "anyedit_tpu/ops/attention.py:237", k4_launches, k4),
     ]
-    kernels[0]["launches_w8a8_slice"] = q_launches["flash_nomax"]
-    kernels[1]["launches_w8a8_slice"] = q_launches["group_norm"]
+    for row in kernels[:2]:
+        row["launches_w8a8_slice"] = q_launches[row["name"]]
+        row["launches_ground"] = g_launches[row["name"]]
+        row["launches_color_alter"] = r_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

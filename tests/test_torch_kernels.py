@@ -95,15 +95,17 @@ def test_wrappers_raise_off_cpu_and_cuda(op):
 
 # Every GroupNorm shape of the main path (NCHW): the SD1.5 IP2P UNet at
 # batch 3 (one request, 3-way CFG) and 24 (the bench's batch 8), and the SD
-# VAE's encoder and decoder at 512 px.
+# VAE's encoder and decoder at 512 px, and GroundingDINO's input projections
+# at 800 px (strides 8, 16, 32 and the extra stride-2 level: short, odd spans).
 UNET_NORMS = [(320, 32, 32), (320, 64, 64), (640, 16, 16), (640, 32, 32),
               (640, 64, 64), (960, 32, 32), (960, 64, 64), (1280, 8, 8),
               (1280, 16, 16), (1280, 32, 32), (1920, 16, 16), (1920, 32, 32),
               (2560, 8, 8), (2560, 16, 16)]
 VAE_NORMS = [(128, 256, 256), (128, 512, 512), (256, 128, 128), (256, 256, 256),
              (256, 512, 512), (512, 64, 64), (512, 128, 128), (512, 256, 256)]
+GDINO_NORMS = [(256, 100, 100), (256, 50, 50), (256, 25, 25), (256, 13, 13)]
 MAIN_PATH_NORMS = ([(b,) + s for b in (3, 24) for s in UNET_NORMS]
-                   + [(1,) + s for s in VAE_NORMS])
+                   + [(1,) + s for s in VAE_NORMS + GDINO_NORMS])
 
 
 @pytest.mark.parametrize("shape", MAIN_PATH_NORMS, ids=str)

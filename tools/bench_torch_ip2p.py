@@ -10,6 +10,7 @@
     python3 tools/bench_torch_ip2p.py --profile    # device time by kernel class
     python3 tools/bench_torch_ip2p.py --profile --int8
     python3 tools/bench_torch_ip2p.py --latency [--int8]  # s per 100-step request
+    python3 tools/bench_torch_ip2p.py --ground     # grounding stage + color_alter record
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -20,7 +21,11 @@ The time is the best of 3 runs after one warm-up run, host clock around
 work that ends in a device synchronise. `--kernels` times the hand kernels
 against their plain PyTorch versions at the paths' shapes, beside each
 kernel's bound and the one PyTorch call that computes the same function
-(`ops/kernel_check.py`). Every line names the card and its power limit.
+(`ops/kernel_check.py`). `--ground` times the full-width grounding stage
+(GroundingDINO SwinB at 800 px, SAM ViT-H at 1024) part by part and one
+`color_alter` record, each the median of 3 runs after a warm-up, beside
+its device-busy share and its device time by kernel class. Every line
+names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import K3_SHAPES  # noqa: E402  (the repo root, just put on the path)
+from chip_smoke import (  # noqa: E402  (the repo root, just put on the path)
+    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD,
+)
 
 SIZE = 512
 STEPS = 50
@@ -187,7 +194,7 @@ K2_SHAPES = (((3, 320, 64, 64), True), ((3, 640, 32, 32), False),
              ((24, 320, 64, 64), True), ((24, 640, 32, 32), False),
              ((24, 1280, 8, 8), True), ((1, 128, 512, 512), True),
              ((1, 256, 512, 512), True), ((1, 256, 256, 256), True),
-             ((1, 512, 64, 64), True))
+             ((1, 512, 64, 64), True)) + tuple((shape, False) for shape in K2_GDINO_SHAPES)
 
 
 K1_BLOCKS = ((4, 1), (8, 1), (4, 2))
@@ -397,6 +404,8 @@ def _category(kernel: str) -> str:
                        ("conv", "cudnn", "fprop", "nchwtonhwc", "nhwctonchw")),
                       ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass", "nvjet", "gemv")),
                       ("softmax", ("softmax",)),
+                      ("grid_sample (deformable attention)", ("grid_sampler",)),
+                      ("sort / top-k", ("sort", "radix")),
                       ("elementwise / copy / reduce",
                        ("elementwise", "vectorized", "reduce", "copy", "cat",
                         "index", "fill", "upsample", "unrolled"))):
@@ -405,16 +414,34 @@ def _category(kernel: str) -> str:
     return "other"
 
 
+def device_classes(prof, iters: int):
+    """(ms, launches, ms by kernel) per call, by `_category`, from the CUDA
+    events of a `torch.profiler` run over `iters` calls."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    ms, launches, by_kernel = (collections.Counter() for _ in range(3))
+    for e in prof.key_averages():
+        # self_cuda_time_total is the older torch's name of the field
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if e.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        cat = _category(e.key)
+        ms[cat] += us / iters / 1e3
+        launches[cat] += e.count / iters
+        by_kernel[e.key[:90]] += us / iters / 1e3
+    return ms, launches, by_kernel
+
+
 def profile_breakdown(dev, int8: bool = False) -> list[dict]:
     """Device time by kernel class for one full-width UNet call at batch 3
     (one request) and 24 (the bench batch), and for VAE encode and decode at
     n = 1: `torch.profiler` over a few calls, beside the CUDA-event time of
     the same calls unprofiled. busy_share = device busy / event time. With
     `int8` the UNet is the W8A8 one."""
-    import collections
-
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET
     from anyedit_tpu_torch.models.vae import SD_VAE, AutoencoderKL
@@ -445,23 +472,79 @@ def profile_breakdown(dev, int8: bool = False) -> list[dict]:
                 for _ in range(iters):
                     fn()
                 torch.cuda.synchronize()
-        ms, launches, by_kernel = (collections.Counter() for _ in range(3))
-        for e in prof.key_averages():
-            # self_cuda_time_total is the older torch's name of the field
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            if e.device_type != DeviceType.CUDA or us <= 0:
-                continue
-            cat = _category(e.key)
-            ms[cat] += us / iters / 1e3
-            launches[cat] += e.count / iters
-            by_kernel[e.key[:90]] += us / iters / 1e3
+        ms, launches, by_kernel = device_classes(prof, iters)
         busy = sum(ms.values())
         rows.append({"label": label, "event_ms": event_ms, "device_busy_ms": busy,
                      "busy_share": busy / event_ms,
                      "ms_by_class": dict(ms.most_common()),
                      "launches_by_class": {k: round(v) for k, v in launches.items()},
                      "top_kernels_ms": dict(by_kernel.most_common(10))})
+    return rows
+
+
+def bench_ground(dev, runs: int = 3) -> list[dict]:
+    """The grounding stage at full width (`ModelZoo(ZooConfig(box_threshold
+    =0.0))`, seeded weights on the card, a 480x640 image) part by part: the
+    GroundingDINO forward, the SAM encode, the SAM decode of the 32
+    candidate boxes, the whole `ground()` call, and one `color_alter`
+    record at 100 steps through the registry. Each row: the median and
+    the runs (host clock around work that ends in a device synchronise) of
+    `runs` calls after a warm-up, then one call under `torch.profiler`:
+    device-busy ms, busy_share = busy / median, device ms and launches by
+    kernel class, and the top kernels. Every part is timed before the
+    first profiled call, so no timing follows a profiler session."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    ground, gd, sam = zoo.grounder(), zoo._gdino(), zoo._sam()
+    img = np.random.default_rng(2).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    phrase = RECORD["edited object"]
+    with torch.inference_mode():
+        pixels, ids, mask, _ = zoo.detector_inputs(img, phrase)
+        sam_px, scale = zoo.sam_inputs(img)
+        emb = sam.encode(sam_px)
+        prompts = (ground(img, phrase).boxes * scale)[None]
+    tb, rec = zoo.toolbox(), InstructionRecord.from_json(RECORD)
+    record = get_pipeline(rec.edit_type)
+    work = [("gdino forward (800 px, 900 queries, 256 tokens)", lambda: gd(pixels, ids, mask)),
+            ("sam encode (ViT-H, 1024)", lambda: sam.encode(sam_px)),
+            (f"sam decode ({prompts.shape[1]} boxes)", lambda: sam.decode_boxes(emb, prompts)),
+            (f"ground() {GROUND_HW[0]}x{GROUND_HW[1]}", lambda: ground(img, phrase)),
+            ("color_alter record (100 steps)",
+             lambda: record(tb, rec, img, np.random.default_rng(0)))]
+    timed = []
+    for _, fn in work:
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            secs = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        timed.append(secs)
+    rows = []
+    for (label, fn), secs in zip(work, timed):
+        with torch.inference_mode():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        ms, launches, by_kernel = device_classes(prof, 1)
+        median_ms = statistics.median(secs) * 1e3
+        busy = sum(ms.values())
+        rows.append({"label": label, "median_ms": median_ms,
+                     "runs_ms": [t * 1e3 for t in secs], "device_busy_ms": busy,
+                     "busy_share": busy / median_ms, "ms_by_class": dict(ms.most_common()),
+                     "launches_by_class": {k: round(v) for k, v in launches.items()},
+                     "top_kernels_ms": dict(by_kernel.most_common(8))})
     return rows
 
 
@@ -483,11 +566,13 @@ def main() -> int:
                       help="device time by kernel class for the UNet and VAE instead")
     mode.add_argument("--latency", action="store_true",
                       help="seconds per 100-step ip2p() request instead")
+    mode.add_argument("--ground", action="store_true",
+                      help="the grounding stage and one color_alter record instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
-                      or args.paths):
+                      or args.paths or args.ground):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -510,6 +595,8 @@ def main() -> int:
         rows = profile_breakdown(dev, args.int8)
     elif args.latency:
         rows = [bench_latency(dev, args.int8)]
+    elif args.ground:
+        rows = bench_ground(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
