@@ -92,38 +92,53 @@ def roofline(ops: float, peak: float, nbytes: float, exps: float = 0.0) -> dict:
             "bound_by": "bytes" if term == "bytes" else "operations"}
 
 
-def _kernel_us(fn, iters: int) -> list[tuple[str, float]]:
+def _kernel_us(fn, iters: int, tries: int = 3) -> list[tuple[str, float]]:
     """(kernel name, device microseconds in all) over `iters` calls of
-    `fn()` after a warm-up, from `torch.profiler`."""
+    `fn()` after a warm-up, from `torch.profiler`. CUPTI now and then
+    delivers no kernel records for a short session; such a session is run
+    again, up to `tries` times in all, and [] means that none saw any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        rows.append((e.key, e.self_cuda_time_total if us is None else us))
-    return rows
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            rows.append((e.key, e.self_cuda_time_total if us is None else us))
+        if sum(us for _, us in rows) > 0:
+            return rows
+    return []
 
 
 def device_profile(fn, iters: int = 10) -> tuple[float, str]:
     """(device ms per call, name of the kernel with the most device time)
     of `fn()`. Unlike `time_ms` this leaves out the host's launch overhead,
     which bounds `time_ms` for kernels of a few microseconds; the name says
-    which backend a PyTorch call took."""
+    which backend a PyTorch call took. Where the profiler saw no device
+    time, the ms are `time_ms`'s (CUDA events) and the name says so."""
     rows = _kernel_us(fn, iters)
-    name = max(rows, key=lambda r: r[1])[0] if rows else "unknown"
+    if not rows:
+        return time_ms(fn, iters), NO_PROFILE
+    name = max(rows, key=lambda r: r[1])[0]
     return sum(us for _, us in rows) / iters / 1e3, name[:120]
 
 
-def named_device_ms(fn, name: str, iters: int = 10) -> float:
+NO_PROFILE = "unknown: the profiler saw no device time, CUDA events instead"
+
+
+def named_device_ms(fn, name: str, iters: int = 10) -> float | None:
     """Device ms per call of `fn()` in the kernels whose name holds `name`:
-    a hand kernel alone, without the PyTorch ops its wrapper runs around it."""
-    return sum(us for key, us in _kernel_us(fn, iters) if name in key) / iters / 1e3
+    a hand kernel alone, without the PyTorch ops its wrapper runs around it.
+    None where the profiler saw no device time."""
+    rows = _kernel_us(fn, iters)
+    if not rows:
+        return None
+    return sum(us for key, us in rows if name in key) / iters / 1e3
 
 
 def _timings(res: dict, kernel, plain, library, iters: int) -> None:

@@ -20,12 +20,21 @@ init on the device. With `quant_ip2p` (or `quant_diffusion`) the float
 UNet parameters are quantized once at slot build into the W8A8 UNet, as the
 JAX zoo does. The JAX zoo's fused/stepwise compile split and its LCM branch
 have no counterpart here: the port runs one Python denoise loop.
+
+The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
+clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
+to the tower's size, ImageNet mean and std, as the JAX zoo); `aesthetic_fn()`
+the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
+EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
+"aesthetic", "vqa") to a Toolbox, and `toolbox(slots=...)` installs them
+beside `ground` and `ip2p`. The per-image CLIP path only: the JAX zoo's
+`clip_image.batch` (chunk mode) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,16 +42,22 @@ import torch
 from anyedit_tpu_torch.core.config import CanvasConfig
 from anyedit_tpu_torch.diffusion import ip2p_edit
 from anyedit_tpu_torch.edits.types import Toolbox
+from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
 from anyedit_tpu_torch.grounding.text import SimpleVocabTokenizer, phrase_token_spans
 from anyedit_tpu_torch.models.bert import TINY_BERT
-from anyedit_tpu_torch.models.clip import CLIP_L_TEXT, TINY_TEXT, CLIPTextConfig, CLIPTextEncoder
+from anyedit_tpu_torch.models.blip2 import BLIP2_QFORMER, TINY_QFORMER, Blip2VQA, QFormerConfig, yes_no
+from anyedit_tpu_torch.models.clip import (
+    CLIP_L_TEXT, CLIP_L_VISION, EVA_VIT_G, TINY_TEXT, TINY_VISION, CLIPTextConfig,
+    CLIPTextEncoder, CLIPTextModel, CLIPVisionConfig, CLIPVisionEncoder,
+)
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
 from anyedit_tpu_torch.models.sam import (
     SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
 )
 from anyedit_tpu_torch.models.swin import TINY_SWIN
+from anyedit_tpu_torch.models.t5 import TINY_T5
 from anyedit_tpu_torch.models.unet_sd import (
     SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
@@ -58,7 +73,10 @@ from anyedit_tpu_torch.weights.init import seeded_init_
 
 @dataclasses.dataclass
 class ZooConfig:
-    """The fields of the JAX `ZooConfig` that the grounding and IP2P slots read."""
+    """The fields of the JAX `ZooConfig` that the grounding, IP2P and scorer
+    slots read. `t5_hash_vocab` stands for the JAX config's
+    `flux_text.vocab_size`: with no SentencePiece model the VQA question's
+    hash ids are taken modulo it before the modulo of the LM's vocabulary."""
 
     canvas: CanvasConfig = CanvasConfig()
     gdino: GDINOConfig = GDINO_SWINB
@@ -67,6 +85,10 @@ class ZooConfig:
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     vae: VAEConfig = SD_VAE
     text: CLIPTextConfig = CLIP_L_TEXT
+    vision: CLIPVisionConfig = CLIP_L_VISION   # clip_image tower
+    eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
+    qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
+    t5_hash_vocab: int = 32128                 # T5-XXL's vocabulary
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
@@ -77,12 +99,13 @@ class ZooConfig:
 
 
 def tiny_zoo_config() -> ZooConfig:
-    """The grounding and IP2P fields of the JAX package's hermetic tiny
-    config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
-    canvas. Two differences: every tower is fp32 (the JAX config leaves the
-    tiny Swin and BERT in bf16), and BERT's vocabulary is 30522, so that the
-    hash tokenizer's ids index the table (at TINY_BERT's 128 they fall
-    outside it, which `jnp.take` answers with NaN)."""
+    """The grounding, IP2P and scorer fields of the JAX package's hermetic
+    tiny config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
+    canvas, every box kept above a score of 0. Two differences: every tower
+    is fp32 (the JAX config leaves the tiny Swin, BERT, Q-Former and T5 in
+    bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
+    index the table (at TINY_BERT's 128 they fall outside it, which
+    `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
     return ZooConfig(
         canvas=CanvasConfig(edit_size=64, grounding_size=64, sam_size=64,
@@ -93,7 +116,20 @@ def tiny_zoo_config() -> ZooConfig:
         sam=dataclasses.replace(TINY_SAM, **f32),
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
         vae=dataclasses.replace(TINY_VAE, **f32),
-        text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32))
+        text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32),
+        vision=dataclasses.replace(TINY_VISION, **f32),
+        eva=dataclasses.replace(TINY_VISION, **f32),
+        qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
+                                    **f32),
+        t5_hash_vocab=30522,
+        box_threshold=0.0)
+
+
+def _tiny_clip_layout_eva(vcfg: CLIPVisionConfig) -> bool:
+    """The JAX tiny config's quirk (`anyedit_tpu/cli.py:72`): its `eva` is
+    TINY_VISION, a CLIP-layout tower (pre-LN, projection), whose parameters
+    only the CLIP names fit."""
+    return vcfg.pre_ln
 
 
 class ModelZoo:
@@ -103,8 +139,9 @@ class ModelZoo:
     a model on "cuda" raises where CUDA is absent (no fallback to the CPU).
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
-    "gdino", "sam", "unet_ip2p", "vae" and "clip_text"; a missing slot gets
-    a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
+    "gdino", "sam", "unet_ip2p", "vae", "clip_text", "clip_vision",
+    "clip_text_proj", "aesthetic", "eva_vit" and "blip2"; a missing slot
+    gets a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
 
     def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
@@ -134,6 +171,20 @@ class ModelZoo:
         return module.eval().requires_grad_(False)
 
     # ---- tokenization ----------------------------------------------------
+    def _ids(self, text: str, max_len: int, vocab_size: int | None = None) -> np.ndarray:
+        """BERT-style hash ids (grounding, the VQA question), zero-padded."""
+        enc = self.tokenizer.encode(text)
+        ids_a = np.zeros((1, max_len), np.int64)
+        n = min(max_len, len(enc.ids))
+        ids_a[0, :n] = enc.ids[:n]
+        if vocab_size is not None:
+            ids_a %= vocab_size
+        return ids_a
+
+    def _t5_ids(self, text: str, max_len: int) -> np.ndarray:
+        """T5 ids: the JAX zoo's fallback with no SentencePiece model."""
+        return self._ids(text, max_len, self.cfg.t5_hash_vocab)
+
     def _clip_ids(self, text: str, max_len: int) -> np.ndarray:
         """CLIP ids, EOT-padded (HF CLIPTokenizer convention: pooled =
         first-argmax token = the real EOT)."""
@@ -211,6 +262,11 @@ class ModelZoo:
         return self._get("ip2p_core", build)
 
     # ---- the slots -------------------------------------------------------
+    def _pixels(self, image_u8, size: int) -> torch.Tensor:
+        """(1, size, size, 3): bilinear antialiased resize, ImageNet mean and std."""
+        img = torch.as_tensor(image_u8, device=self.device).float() / 255.0
+        return imagenet_normalize(resize_image(img, size, size, "bilinear"))[None]
+
     def detector_inputs(self, image_u8, phrase: str):
         """(pixels (1, S, S, 3), ids (1, T), mask (1, T), span) for the
         detector: bilinear resize to the grounding bucket, ImageNet
@@ -219,8 +275,7 @@ class ModelZoo:
         when the phrase is not in the tokens."""
         c = self.cfg
         size, tlen = c.canvas.grounding_size, c.gdino.max_text_len
-        img = torch.as_tensor(image_u8, device=self.device).float()
-        pixels = imagenet_normalize(resize_image(img / 255.0, size, size, "bilinear"))[None]
+        pixels = self._pixels(image_u8, size)
         caption = phrase if phrase.endswith(".") else phrase + "."
         enc = self.tokenizer.encode(caption)
         n = min(len(enc.ids), tlen)
@@ -268,9 +323,109 @@ class ModelZoo:
             return ground
         return self._get("ground", build)
 
-    def toolbox(self) -> Toolbox:
-        """A Toolbox with the slots ported so far: `ground` and `ip2p`."""
-        return Toolbox(ground=self.grounder(), ip2p=self.ip2p())
+    def _vision(self, slot: str, vcfg: CLIPVisionConfig) -> CLIPVisionEncoder:
+        """The "clip_vision" tower, with CLIP names, or the "eva_vit" tower,
+        with BLIP-2 names."""
+        to_sd = {"clip_vision": bridge.clip_vision_state_dict,
+                 "eva_vit": bridge.eva_vit_state_dict}[slot]
+        if slot == "eva_vit" and _tiny_clip_layout_eva(vcfg):
+            to_sd = bridge.clip_vision_state_dict
+        return self._get(slot, lambda: self._load(
+            CLIPVisionEncoder(vcfg, device=self.device), slot, to_sd))
+
+    def _text_proj(self) -> CLIPTextModel:
+        c = self.cfg
+        return self._get("clip_text_proj", lambda: self._load(
+            CLIPTextModel(c.text, proj_dim=c.vision.proj_dim, device=self.device),
+            "clip_text_proj", bridge.clip_text_proj_state_dict))
+
+    def _aesthetic_mlp(self) -> AestheticMLP:
+        return self._get("aesthetic_mlp", lambda: self._load(
+            AestheticMLP(self.cfg.vision.proj_dim, device=self.device), "aesthetic",
+            bridge.aesthetic_state_dict))
+
+    def _blip2(self) -> Blip2VQA:
+        c = self.cfg
+        return self._get("blip2", lambda: self._load(
+            Blip2VQA(c.qformer, image_dim=c.eva.hidden, device=self.device), "blip2",
+            bridge.blip2_state_dict))
+
+    def clip_towers(self):
+        """(clip_image(image_u8) -> (1, P), clip_text(text) -> (1, P)), both
+        L2-normed fp32 on the device: the filter_tool/utils.py:15-40 pair."""
+        def build():
+            c = self.cfg
+            vis, tm = self._vision("clip_vision", c.vision), self._text_proj()
+
+            @torch.inference_mode()
+            def clip_image(image_u8):
+                return vis(self._pixels(image_u8, c.vision.image_size))[1]
+
+            @torch.inference_mode()
+            def clip_text(text: str):
+                ids = torch.from_numpy(self._clip_ids(text, c.text.max_len))
+                return tm(ids.to(self.device))
+            return clip_image, clip_text
+        return self._get("clip_towers", build)
+
+    def aesthetic_fn(self):
+        """image_u8 -> float: the LAION aesthetic MLP over the CLIP image
+        embedding (pre_filter.py:38-81, gate > 2)."""
+        def build():
+            clip_image, _ = self.clip_towers()
+            mlp = self._aesthetic_mlp()
+
+            @torch.inference_mode()
+            def score(image_u8) -> float:
+                return float(mlp(clip_image(image_u8))[0])
+            return score
+        return self._get("aesthetic", build)
+
+    def vqa_fn(self):
+        """(image_u8, question) -> bool: BLIP-2's yes/no answer
+        (filter_tool/utils.py:55-94). `ask.logits(image_u8, question)` gives
+        the decoder's first-step logits (1, vocab) it compares. The question
+        is 32 hash ids, modulo `t5_hash_vocab` then the LM's vocabulary,
+        masked where 0; 'yes' and 'no' are the first id after CLS of the
+        words' own ids, as in the JAX zoo with no SentencePiece model."""
+        def build():
+            c = self.cfg
+            vis, vqa = self._vision("eva_vit", c.eva), self._blip2()
+            vocab = c.qformer.lm.vocab_size
+            yes_id = int(self._ids("yes", 3, vocab)[0, 1])   # [0, 0] is CLS
+            no_id = int(self._ids("no", 3, vocab)[0, 1])
+
+            @torch.inference_mode()
+            def logits(image_u8, question: str) -> torch.Tensor:
+                toks, _ = vis(self._pixels(image_u8, c.eva.image_size))
+                ids = torch.from_numpy(self._t5_ids(question, 32) % vocab).to(self.device)
+                return vqa(toks, ids, ids != 0)
+
+            def ask(image_u8, question: str) -> bool:
+                return bool(yes_no(logits(image_u8, question), yes_id, no_id)[0])
+            ask.logits = logits
+            ask.yes_no_ids = (yes_id, no_id)
+            return ask
+        return self._get("vqa", build)
+
+    def install(self, tb: Toolbox, slot: str) -> None:
+        """Build one named scorer slot and attach it to the toolbox."""
+        if slot == "clip":
+            tb.clip_image, tb.clip_text = self.clip_towers()
+        elif slot == "aesthetic":
+            tb.extra["aesthetic"] = self.aesthetic_fn()
+        elif slot == "vqa":
+            tb.vqa_yes_no = self.vqa_fn()
+        else:
+            raise KeyError(f"unknown toolbox slot {slot!r} "
+                           "(ported: 'clip', 'aesthetic', 'vqa')")
+
+    def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
+        """A Toolbox with `ground` and `ip2p`, and the named scorer slots."""
+        tb = Toolbox(ground=self.grounder(), ip2p=self.ip2p())
+        for s in dict.fromkeys(slots):
+            self.install(tb, s)
+        return tb
 
     def ip2p(self):
         def build():

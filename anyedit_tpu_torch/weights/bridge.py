@@ -29,19 +29,22 @@ import torch
 # layout transforms, named by the forward converter's transform. _CONV also
 # serves SAM's ConvTranspose (`t_convT`): (kH, kW, O, I) <-> torch (I, O, kH,
 # kW) is the same permutation. _LEAD is `t_pos_embed` (and the no-mask
-# embedding's reshape): the torch tensor has a leading axis of 1.
-_CONV, _LINEAR, _ID, _LEAD = "conv", "linear", "id", "lead"
+# embedding's reshape): the torch tensor has a leading axis of 1; _LEAD2 has
+# two (BLIP-2's EVA class embedding, (1, 1, H)).
+_CONV, _LINEAR, _ID, _LEAD, _LEAD2 = "conv", "linear", "id", "lead", "lead2"
 _INVERSE: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (3, 2, 0, 1)),     # HWIO -> OIHW
     _LINEAR: lambda w: np.transpose(w),                  # (in, out) -> (out, in)
     _ID: lambda w: w,
     _LEAD: lambda w: w[None],
+    _LEAD2: lambda w: w[None, None],
 }
 _FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (2, 3, 1, 0)),     # OIHW -> HWIO
     _LINEAR: lambda w: np.transpose(w),
     _ID: lambda w: w,
     _LEAD: lambda w: w[0],
+    _LEAD2: lambda w: w[0, 0],
 }
 
 
@@ -243,6 +246,27 @@ def vae_state_dict(tree: Mapping[str, Any], n_levels: int = 4):
 
 # ---- CLIP text (convert.py `_clip_text_key`) --------------------------------
 
+def _clip_block_key(p: list[str], lb: str, fused_qkv: bool):
+    """One `block_N` leaf of a CLIP text or vision tower; `fused_qkv` for
+    the BLIP-2 vision layout (q, k, v as thirds of `self_attn.qkv`)."""
+    leaf, sub = p[-1], p[1]
+    _, lin, norm = _kinds(leaf)
+    if sub in ("ln1", "ln2"):
+        return norm(f"{lb}.layer_norm{sub[-1]}")
+    if sub in ("fc1", "fc2"):
+        return lin(f"{lb}.mlp.{sub}")
+    if sub == "attn":
+        if not fused_qkv:
+            proj = {"to_q": "q_proj", "to_k": "k_proj", "to_v": "v_proj",
+                    "to_out": "out_proj"}[p[2]]
+            return lin(f"{lb}.self_attn.{proj}")
+        if p[2] == "to_out":
+            return lin(f"{lb}.self_attn.projection")
+        key = f"{lb}.self_attn.qkv.{'weight' if leaf == 'kernel' else 'bias'}"
+        return key, _LINEAR if leaf == "kernel" else _ID, (["to_q", "to_k", "to_v"].index(p[2]), 3)
+    raise KeyError(f"unmapped vision-block param {'/'.join(p)}")
+
+
 def _clip_text_key(path: tuple[str, ...]) -> tuple[str, str]:
     p = _strip(path)
     name, leaf = p[0], p[-1]
@@ -251,20 +275,10 @@ def _clip_text_key(path: tuple[str, ...]) -> tuple[str, str]:
         return f"{base}.embeddings.token_embedding.weight", _ID
     if name == "pos_emb":
         return f"{base}.embeddings.position_embedding.weight", _ID
-    _, lin, norm = _kinds(leaf)
     if name == "ln_final":
-        return norm(f"{base}.final_layer_norm")
+        return _kinds(leaf)[2](f"{base}.final_layer_norm")
     if m := re.match(r"block_(\d+)$", name):
-        lb = f"{base}.encoder.layers.{m[1]}"
-        sub = p[1]
-        if sub in ("ln1", "ln2"):
-            return norm(f"{lb}.layer_norm{sub[-1]}")
-        if sub == "attn":
-            proj = {"to_q": "q_proj", "to_k": "k_proj", "to_v": "v_proj",
-                    "to_out": "out_proj"}[p[2]]
-            return lin(f"{lb}.self_attn.{proj}")
-        if sub in ("fc1", "fc2"):
-            return lin(f"{lb}.mlp.{sub}")
+        return _clip_block_key(p, f"{base}.encoder.layers.{m[1]}", False)
     raise KeyError(f"unmapped CLIP-text param {'/'.join(path)}")
 
 
@@ -492,3 +506,191 @@ def sam_state_dict(tree: Mapping[str, Any]):
 def sam_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
     """The port's SAM state dict -> a Flax tree of `like`'s structure."""
     return _to_tree(like, sd, _sam_key)
+
+
+# ---- CLIP vision (convert.py `_clip_vision_key`, `_eva_key`) ---------------
+
+def _clip_vision_key(path: tuple[str, ...]):
+    p = _strip(path)
+    name = p[0]
+    conv, lin, norm = _kinds(p[-1])
+    base = "vision_model"
+    top = {"cls": (f"{base}.embeddings.class_embedding", _ID),
+           "pos_emb": (f"{base}.embeddings.position_embedding.weight", _ID)}
+    if name in top:
+        return top[name]
+    if name == "patch_emb":
+        return conv(f"{base}.embeddings.patch_embedding")
+    if name == "pre_ln":
+        return norm(f"{base}.pre_layrnorm")   # (sic) HF's spelling
+    if name == "post_ln":
+        return norm(f"{base}.post_layernorm")
+    if name == "visual_proj":
+        return lin("visual_projection")
+    if m := re.match(r"block_(\d+)$", name):
+        return _clip_block_key(p, f"{base}.encoder.layers.{m[1]}", False)
+    raise KeyError(f"unmapped CLIP-vision param {'/'.join(path)}")
+
+
+def _eva_key(path: tuple[str, ...]):
+    p = _strip(path)
+    name = p[0]
+    conv, _, norm = _kinds(p[-1])
+    base = "vision_model"
+    if name == "cls":
+        return f"{base}.embeddings.class_embedding", _LEAD2
+    if name == "pos_emb":
+        return f"{base}.embeddings.position_embedding", _LEAD
+    if name == "patch_emb":
+        return conv(f"{base}.embeddings.patch_embedding")
+    if name == "post_ln":
+        return norm(f"{base}.post_layernorm")
+    if m := re.match(r"block_(\d+)$", name):
+        return _clip_block_key(p, f"{base}.encoder.layers.{m[1]}", True)
+    raise KeyError(f"unmapped EVA param {'/'.join(path)}")
+
+
+def clip_vision_state_dict(tree: Mapping[str, Any]):
+    """Flax `CLIPVisionEncoder` params of a CLIP tower (`pre_ln`) -> the
+    port's `CLIPVisionEncoder` state dict (HF CLIPVisionModelWithProjection keys)."""
+    return _bridge(tree, _clip_vision_key)
+
+
+def clip_vision_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _clip_vision_key)
+
+
+def eva_vit_state_dict(tree: Mapping[str, Any]):
+    """Flax `CLIPVisionEncoder` params of the BLIP-2 layout (no `pre_ln`)
+    -> the port's state dict (HF Blip2VisionModel keys, the q / k / v
+    kernels and biases fused into `self_attn.qkv`)."""
+    return _bridge(tree, _eva_key)
+
+
+def eva_vit_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _eva_key)
+
+
+# ---- CLIPTextModel (the `_clip_text_proj` bootstrap map) --------------------
+
+def _clip_text_proj_key(path: tuple[str, ...]):
+    p = _strip(path)
+    if p[0] == "encoder":
+        return _clip_text_key(tuple(p[1:]))
+    if p[0] == "text_proj":
+        return "text_projection.weight", _LINEAR
+    raise KeyError(f"unmapped CLIPTextModel param {'/'.join(path)}")
+
+
+def clip_text_proj_state_dict(tree: Mapping[str, Any]):
+    """Flax `CLIPTextModel` params (tower + projection) -> the port's
+    `CLIPTextModel` state dict (HF CLIPTextModelWithProjection keys)."""
+    return _bridge(tree, _clip_text_proj_key)
+
+
+def clip_text_proj_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _clip_text_proj_key)
+
+
+# ---- LAION aesthetic MLP (convert.py `_aesthetic_key`) ----------------------
+
+def _aesthetic_key(path: tuple[str, ...]):
+    p = _strip(path)
+    _, lin, _ = _kinds(p[-1])
+    return lin(f"layers.{ {'fc0': 0, 'fc1': 2, 'fc2': 4, 'fc3': 6, 'out': 7}[p[0]] }")
+
+
+def aesthetic_state_dict(tree: Mapping[str, Any]):
+    """Flax `AestheticMLP` params -> the released predictor's Sequential keys."""
+    return _bridge(tree, _aesthetic_key)
+
+
+def aesthetic_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _aesthetic_key)
+
+
+# ---- T5 and BLIP-2 (convert.py `_t5_key`, `_t5_dec_key`, `_qformer_key`,
+# `convert_blip2`) ------------------------------------------------------------
+
+def _t5_key(p: list[str], prefix: str, decoder: bool):
+    """A T5Encoder / T5Decoder leaf -> the HF T5Stack key under `prefix`.
+    The embedding is the stack's own `embed_tokens` (convert.py reads HF's
+    `shared` for both stacks; `embed_tokens` is HF's tied alias of it, and
+    the Flax trees hold two tables)."""
+    name = p[0]
+    _, lin, norm = _kinds(p[-1])
+    if name == "emb":
+        return f"{prefix}embed_tokens.weight", _ID
+    if name == "ln_final":
+        return norm(f"{prefix}final_layer_norm")
+    if name == "lm_head":
+        return lin(f"{prefix}lm_head")
+    ffn = 2 if decoder else 1
+    if m := re.match(r"(ln_a|ln_x|ln_f|attn|self|cross|ffn)_(\d+)$", name):
+        kind, blk = m[1], f"{prefix}block.{m[2]}.layer"
+        if kind in ("ln_a", "ln_x", "ln_f"):
+            return norm(f"{blk}.{ {'ln_a': 0, 'ln_x': 1, 'ln_f': ffn}[kind] }.layer_norm")
+        if kind in ("attn", "self"):
+            if p[1] == "rel_bias":
+                return f"{blk}.0.SelfAttention.relative_attention_bias.weight", _ID
+            return lin(f"{blk}.0.SelfAttention.{p[1]}")
+        if kind == "cross":
+            return lin(f"{blk}.1.EncDecAttention.{p[1]}")
+        return lin(f"{blk}.{ffn}.DenseReluDense.{ {'wi0': 'wi_0', 'wi1': 'wi_1', 'wo': 'wo'}[p[1]] }")
+    raise KeyError(f"unmapped T5 param {'/'.join(p)}")
+
+
+def t5_state_dict(tree: Mapping[str, Any], decoder: bool = False):
+    """Flax `T5Encoder` (or `T5Decoder`) params -> the port's module's state dict."""
+    return _bridge(tree, lambda path: _t5_key(_strip(path), "", decoder))
+
+
+def _qformer_key(p: list[str]):
+    name = p[0]
+    _, lin, norm = _kinds(p[-1])
+    if name == "queries":
+        return "query_tokens", _LEAD
+    if name == "ln_in":
+        return norm("qformer.layernorm")
+    if name == "lm_proj":
+        return lin("language_projection")
+    if m := re.match(r"block_(\d+)$", name):
+        b = f"qformer.encoder.layer.{m[1]}"
+        sub = p[1]
+        if sub in ("ln_sa", "ln_ca", "ln_ff"):
+            return norm({"ln_sa": f"{b}.attention.output.LayerNorm",
+                         "ln_ca": f"{b}.crossattention.output.LayerNorm",
+                         "ln_ff": f"{b}.output_query.LayerNorm"}[sub])
+        if sub in ("fc1", "fc2"):
+            return lin(f"{b}.{'intermediate_query' if sub == 'fc1' else 'output_query'}.dense")
+        att = f"{b}.{'attention' if sub[0] == 's' else 'crossattention'}"
+        if sub[1] == "o":
+            return lin(f"{att}.output.dense")
+        return lin(f"{att}.attention.{ {'q': 'query', 'k': 'key', 'v': 'value'}[sub[1]] }")
+    raise KeyError(f"unmapped QFormer param {'/'.join(p)}")
+
+
+def qformer_state_dict(tree: Mapping[str, Any]):
+    """Flax `QFormer` params -> the port's `QFormer` state dict."""
+    return _bridge(tree, lambda path: _qformer_key(_strip(path)))
+
+
+def _blip2_key(path: tuple[str, ...]):
+    p = _strip(path)
+    if p[0] == "qformer":
+        return _qformer_key(p[1:])
+    if p[0] == "decoder" and p[1] == "lm_head":
+        return "language_model.lm_head.weight", _LINEAR
+    if p[0] in ("encoder", "decoder"):
+        return _t5_key(p[1:], f"language_model.{p[0]}.", p[0] == "decoder")
+    raise KeyError(f"unmapped Blip2VQA param {'/'.join(path)}")
+
+
+def blip2_state_dict(tree: Mapping[str, Any]):
+    """Flax `Blip2VQA` params (Q-Former, T5 encoder and decoder) -> the
+    port's `Blip2VQA` state dict (HF Blip2ForConditionalGeneration keys)."""
+    return _bridge(tree, _blip2_key)
+
+
+def blip2_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _blip2_key)

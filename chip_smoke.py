@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's IP2P editor slot on one NVIDIA GPU, through every
-path that runs a hand kernel.
+"""Drive the PyTorch port on one NVIDIA GPU: every path that runs a hand
+kernel, the scorers, and one record through the factory executor.
 
     python3 chip_smoke.py
 
@@ -57,7 +57,32 @@ Phases, each printing its own line with the seconds it took:
      beyond that window's feather, K1 exactly 1,000 launches and K2 one
      request's
      UNet and VAE launches plus the grounder's 4; seconds per record split
-     into ground / edit / composite.
+     into ground / edit / composite;
+ 12. scorers: the full-width CLIP-L vision tower and CLIP-L text model, the
+     aesthetic MLP, and EVA ViT-g + Q-Former + FLAN-T5-XL `vqa_yes_no`
+     (`ModelZoo.install` of "clip", "aesthetic", "vqa") on a 480x640
+     image: ms of each (median of 3 after a warm-up), finite outputs,
+     unit-norm embeddings, K1 and K2 launched 0 times;
+ 13. executor record: the same record through `FactoryExecutor` on the
+     full-width zoo with ground, ip2p and every scorer installed, three
+     times. (a) The default scorers and both gates: random weights score
+     CLIP and the aesthetic MLP near 0, so the pre-filter is expected to
+     filter; the pre-scores match a recompute through the same closures
+     within 1e-3 and the decision equals `pre_filter_decision` on them.
+     (b) Both gates again, with a pre-scorer that computes every default
+     pre-score on the card (the grounding fills the record memo) and
+     passes on only the image size, since random weights fail the CLIP,
+     aesthetic and object-ratio thresholds (the union of 32 random boxes
+     covers the frame): the ledger line is `success` or `filtered`, its
+     post-filter scores match a recompute within 1e-3, the decision equals
+     `post_filter_decision` on them, K1 launches 1,000 times and K2 one
+     request's count plus 4 (one grounding: the memo holds); the
+     StageTimer report is printed. (c) Both gates off: a `success` whose
+     `edited_img/*.png`, decoded here with zlib, holds the pipeline's bytes.
+Between phases 5 and 6, `scorer reference` holds the tiny scorers (a
+CLIP-layout tower, an EVA-layout tower, the aesthetic MLP and Blip2VQA) in
+bf16 on the card against fp32 on the CPU, within twice the CPU's own bf16
+distance (at least 2^-8).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -66,9 +91,13 @@ with the kernels' numbers and one with the device.
 import contextlib
 import dataclasses
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -87,6 +116,9 @@ GROUND_HW = (480, 640)
 RECORD = {"edit": "change the car to red", "edited object": "car",
           "input": "a car parked on a street", "output": "a red car parked on a street",
           "edit_type": "color_alter", "image_file": "street.jpg"}
+VQA_QUESTIONS = ["Is the color of car close to red?",
+                 "Is the background of this image similar to a street?",
+                 "Is there a car in this picture?"]
 REQUESTS = [((512, 512), "make the sky a deep orange"),
             ((480, 640), "turn it into a winter scene")]
 # K3 shapes at batch 3 x 8 heads: self-attention (Lq = Lkv) and
@@ -192,10 +224,12 @@ def check_kernels(dev):
                kc.check_flash_int8(2, 1024, 128, dev, dtype=torch.float32)))
     for shape, r in k4:
         bound = K4_SDPA_BOUND.get(int(shape.split(",")[1]), 0.03)
+        alone = ("not measured" if r["kernel_device_ms"] is None
+                 else f"{r['kernel_device_ms']:.4f} ms")
         print(f"K4 flash_int8 {shape}: max {r['max_abs_err']:.3e} mean "
               f"{r['mean_abs_err']:.3e}, rel-L2 to fp32 sdpa {r['rel_l2_sdpa']:.4f} "
               f"(bound {bound}) | kernel {r['ms']:.4f} ms ({r['tops']:.2f} TOP/s, "
-              f"device {r['kernel_device_ms']:.4f} ms without the wrapper's "
+              f"device {alone} without the wrapper's "
               f"quantization) plain {r['plain_ms']:.4f} ms{yardsticks(r)}", flush=True)
         require(r["finite"] and r["mean_abs_err"] <= 1e-4 and r["max_abs_err"] <= 3e-2,
                 f"K4 {shape} agrees with its plain version")
@@ -275,7 +309,7 @@ def check_grounding_reference(dev):
     import torch
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
 
-    tiny = dataclasses.replace(tiny_zoo_config(), box_threshold=0.0)
+    tiny = tiny_zoo_config()
 
     def cfg(dtype):
         g = tiny.gdino
@@ -613,6 +647,292 @@ def color_alter_record(dev, zoo, k2_per_request: int):
     return launches, seconds
 
 
+def check_scorer_reference(dev):
+    """The tiny scorers in bf16 on the card against the same scorers in fp32
+    on the CPU, same weights: the CLIP-layout tower through `clip_image`,
+    the CLIP text model, the aesthetic MLP, an EVA-layout tower (no pre-LN,
+    no projection, a patch-conv bias, a 48-wide exact-GELU MLP) and
+    Blip2VQA's first-step logits on it. Each output within twice the CPU's
+    own bf16 distance, at least one bf16 rounding (2^-8); the yes/no
+    answers agree wherever the fp32 margin exceeds twice that bound (each
+    of the two logits may move by it)."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+    eva = dataclasses.replace(tiny.eva, pre_ln=False, use_proj=False, patch_bias=True,
+                              mlp_dim=48, activation="gelu")
+
+    def cfg(dtype):
+        q = tiny.qformer
+        return dataclasses.replace(
+            tiny, vision=dataclasses.replace(tiny.vision, dtype=dtype),
+            text=dataclasses.replace(tiny.text, dtype=dtype),
+            eva=dataclasses.replace(eva, dtype=dtype),
+            qformer=dataclasses.replace(q, dtype=dtype, lm=dataclasses.replace(q.lm, dtype=dtype)))
+
+    def modules(z):
+        c = z.cfg
+        return [z._vision("clip_vision", c.vision), z._text_proj(), z._aesthetic_mlp(),
+                z._vision("eva_vit", c.eva), z._blip2()]
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    for k in ("cpu16", "card16"):
+        for src, dst in zip(modules(zoos["ref"]), modules(zoos[k])):
+            dst.load_state_dict(src.state_dict())
+    img = np.random.default_rng(5).integers(0, 256, (48, 40, 3), np.uint8)
+
+    def outputs(z):
+        clip_image, clip_text = z.clip_towers()
+        with torch.inference_mode():
+            tokens = z._vision("eva_vit", z.cfg.eva)(z._pixels(img, z.cfg.eva.image_size))[0]
+        ask = z.vqa_fn()
+        out = {"clip_image": clip_image(img), "clip_text": clip_text(RECORD["input"]),
+               "aesthetic": torch.tensor([z.aesthetic_fn()(img)]), "eva_tokens": tokens}
+        for i, q in enumerate(VQA_QUESTIONS):
+            out[f"vqa_logits_{i}"] = ask.logits(img, q)[0]
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    out = {k: outputs(z) for k, z in zoos.items()}
+    yes, no = zoos["ref"].vqa_fn().yes_no_ids
+    bounds = {}
+    for name, ref in out["ref"].items():
+        d16 = float((out["cpu16"][name] - ref).abs().max())
+        dcard = float((out["card16"][name] - ref).abs().max())
+        bounds[name] = 2 * max(d16, 2.0 ** -8)
+        print(f"tiny scorer {name}: card bf16 vs CPU fp32 max diff {dcard:.3e}, CPU bf16 "
+              f"{d16:.3e} (bound {bounds[name]:.3e})", flush=True)
+        require(bool(torch.isfinite(out["card16"][name]).all()) and dcard <= bounds[name],
+                f"the card's bf16 {name} is within twice the CPU's bf16 distance")
+    checked = 0
+    for i in range(len(VQA_QUESTIONS)):
+        ref, card = out["ref"][f"vqa_logits_{i}"], out["card16"][f"vqa_logits_{i}"]
+        margin = float(ref[yes] - ref[no])
+        if abs(margin) > 2 * bounds[f"vqa_logits_{i}"]:
+            checked += 1
+            require((float(card[yes] - card[no]) > 0) == (margin > 0),
+                    f"the card's yes/no answer to question {i} is the CPU's")
+    print(f"tiny yes/no answers: {checked} of {len(VQA_QUESTIONS)} margins past the bound, "
+          "all agree", flush=True)
+
+
+def median_ms(fn, runs: int = 3) -> tuple[float, list[float]]:
+    """Median host ms of `runs` synchronized calls (after the caller's warm-up)."""
+    import torch
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def scorers(dev, zoo):
+    """The full-width scorer slots on a 480x640 image: ms of each (median
+    of 3 after a warm-up), finite outputs, unit-norm embeddings, and no K1 or
+    K2 launch. Returns the ms by scorer."""
+    import torch
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+
+    t0 = time.perf_counter()
+    tb = Toolbox()
+    for slot in ("clip", "aesthetic", "vqa"):
+        zoo.install(tb, slot)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    img = np.random.default_rng(6).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    calls = {"clip_image": lambda: tb.clip_image(img),
+             "clip_text": lambda: tb.clip_text(RECORD["output"]),
+             "aesthetic": lambda: tb.extra["aesthetic"](img),
+             "vqa_yes_no": lambda: tb.vqa_yes_no(img, VQA_QUESTIONS[0])}
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    timed = {name: median_ms(fn) for name, fn in calls.items()}
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    require(launches == {"flash_nomax": 0, "group_norm": 0},
+            f"the scorers launched {launches}, want K1 0 and K2 0")
+    c = zoo.cfg
+    zi, zt = tb.clip_image(img), tb.clip_text(RECORD["output"])
+    logits = tb.vqa_yes_no.logits(img, VQA_QUESTIONS[0])
+    aesthetic = tb.extra["aesthetic"](img)
+    for name, z in (("clip_image", zi), ("clip_text", zt)):
+        require(tuple(z.shape) == (1, c.vision.proj_dim) and bool(torch.isfinite(z).all())
+                and abs(float(z.norm()) - 1.0) <= 1e-3, f"{name} is a finite unit vector")
+    require(tuple(logits.shape) == (1, c.qformer.lm.vocab_size)
+            and bool(torch.isfinite(logits).all()) and np.isfinite(aesthetic),
+            "the VQA logits and the aesthetic score are finite")
+    yes, no = tb.vqa_yes_no.yes_no_ids
+    print(f"scorers (CLIP_L_VISION + CLIP-L text, aesthetic MLP, EVA_VIT_G + BLIP2_QFORMER "
+          f"+ FLAN_T5_XL) built on the card in {build_s:.2f} s; on {GROUND_HW[0]}x"
+          f"{GROUND_HW[1]}: " + ", ".join(
+              f"{k} {v[0]:.2f} ms ({', '.join(f'{t:.2f}' for t in v[1])})"
+              for k, v in timed.items())
+          + f"; CLIP score {float((zi * zt).sum()):.4f}, aesthetic {aesthetic:.4f}, yes-no "
+          f"logit margin {float(logits[0, yes] - logits[0, no]):.4f}; launches {launches}",
+          flush=True)
+    return {k: v[0] for k, v in timed.items()}
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit grayscale, RGB or RGBA PNG whose rows all use filter type 0
+    (what the port's writer emits) -> (H, W[, C]) uint8."""
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", "a PNG signature")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+    w, h, depth, ctype = hdr[:4]
+    ch = {0: 1, 2: 3, 6: 4}[ctype]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * ch)
+    require(depth == 8 and not rows[:, 0].any(), "8-bit rows with filter type 0")
+    px = rows[:, 1:].reshape(h, w, ch)
+    return px[..., 0] if ch == 1 else px
+
+
+def executor_record(dev, zoo, k2_per_request: int):
+    """RECORD through `FactoryExecutor` three times (the docstring's phase
+    13). Returns (launches of run (b), its StageTimer report)."""
+    import torch
+    from anyedit_tpu_torch.core.rng import host_rng
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.global_ import crop_composite
+    from anyedit_tpu_torch.filters.post_filter import post_filter_decision
+    from anyedit_tpu_torch.filters.pre_filter import PreScores, pre_filter_decision
+    from anyedit_tpu_torch.filters.scorers import directional_clip_score
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+
+    rec = InstructionRecord.from_json(RECORD)
+    img = np.random.default_rng(7).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    seen = {}
+
+    def capture(name, fn):
+        def call(*args, **kwargs):
+            seen[name] = fn(*args, **kwargs)
+            return seen[name]
+        return call
+
+    def run(root, label, **cfg):
+        """One executor over a fresh toolbox (ground and ip2p captured);
+        returns (executor, ledger line, launches, seconds)."""
+        tb = zoo.toolbox(slots=("clip", "aesthetic", "vqa"))
+        tb.ground, tb.ip2p = capture("ground", tb.ground), capture("edit", tb.ip2p)
+        ex = FactoryExecutor(tb, ExecutorConfig(output_root=str(Path(root) / label), **cfg))
+        default_pre, default_post = ex.pre_scorer, ex.post_scorer
+        ex.pre_scorer = lambda r, i: seen.setdefault("pre", default_pre(r, i))
+        ex.post_scorer = lambda r, i, o: seen.setdefault("post", (o, default_post(r, i, o)))[1]
+        return ex
+
+    def go(ex):
+        torch.cuda.synchronize()
+        flash_nomax.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        ex.run([rec], lambda r: img)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+        line = json.loads((Path(ex.cfg.output_root) / "ledger.jsonl").read_text().splitlines()[-1])
+        return line, launches, seconds
+
+    clip_image, clip_text = zoo.clip_towers()
+    full = {"flash_nomax": STEPS * K1_PER_UNET_CALL,
+            "group_norm": k2_per_request + K2_PER_GROUND}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the default scorers, both gates on
+        seen.clear()
+        ex = run(root, "default")
+        line, launches, seconds = go(ex)
+        pre = seen["pre"]
+        ratio = zoo.grounder()(img, rec.edited_object).union_ratio
+        recompute = {"clip": float((clip_image(img) * clip_text(rec.input)).sum()),
+                     "aesthetic": zoo.aesthetic_fn()(img), "object_ratio": float(ratio)}
+        for k, v in recompute.items():
+            require(abs(getattr(pre, k) - v) <= 1e-3, f"pre-score {k} matches a recompute")
+        keep = pre_filter_decision(rec.edit_type, pre, edited_object=rec.edited_object,
+                                   rng_uniform=float(host_rng(0, rec.key()).uniform()))
+        pre_filtered = line["status"] == "filtered" and line["payload"].get("stage") == "pre"
+        require(keep != pre_filtered, "the pre-gate's decision is pre_filter_decision's")
+        want = {"flash_nomax": 0, "group_norm": K2_PER_GROUND} if pre_filtered else full
+        require(launches == want, f"run (a) launched {launches}, want {want}")
+        print(f"executor record (a), default scorers and gates: {line['status']} "
+              f"{line['payload'].get('stage', '')} in {seconds:.3f} s; pre-scores clip "
+              f"{pre.clip:.4f}, aesthetic {pre.aesthetic:.4f}, object ratio "
+              f"{pre.object_ratio:.4f} (recomputed within 1e-3); launches {launches}",
+              flush=True)
+
+        # (b) both gates; the pre-gate sees the image size only
+        seen.clear()
+        ex = run(root, "gated")
+        scored = ex.pre_scorer
+
+        def size_only(r, i):
+            s = scored(r, i)
+            return PreScores(width=s.width, height=s.height)
+        ex.pre_scorer = size_only
+        line, launches, seconds = go(ex)
+        require(line["status"] in ("success", "filtered")
+                and line["payload"].get("stage") != "pre", f"run (b) ended {line}")
+        outcome, sc = seen["post"]
+        if line["status"] == "filtered":
+            require(line["payload"]["scores"] == dataclasses.asdict(sc),
+                    "the ledger holds the post-filter's scores")
+        edited = outcome.edited
+        ie_t, te_t = clip_image(edited), clip_text(rec.output)
+        ie_s, te_s = clip_image(img), clip_text(rec.input)
+        words = rec.edit.split()
+        recompute = {
+            "clip": float((ie_t * te_t).sum()),
+            "dir_clip": float(directional_clip_score(ie_s, ie_t, te_s, te_t)),
+            "l1": float(np.mean(np.abs(img.astype(np.float32) - edited.astype(np.float32)))
+                        / 255.0),
+            "vqa_yes": zoo.vqa_fn()(edited, f"Is the color of {rec.edited_object} close to "
+                                            f"{words[-1]}?")}
+        for k, v in recompute.items():
+            got = getattr(sc, k)
+            require(got == v if isinstance(v, bool) else abs(got - v) <= 1e-3,
+                    f"post-score {k} {got} matches a recompute {v}")
+        require(post_filter_decision(rec.edit_type, sc) == (line["status"] == "success"),
+                "the post-gate's decision is post_filter_decision's")
+        require(launches == full, f"run (b) launched {launches}, want {full} (one grounding)")
+        report = ex.timer.report()
+        print(f"executor record (b), both gates, the pre-gate on the image size: "
+              f"{line['status']} in {seconds:.3f} s; post-scores {dataclasses.asdict(sc)} "
+              f"(recomputed within 1e-3); launches {launches}", flush=True)
+        print(f"executor record (b) StageTimer: {json.dumps(report)}", flush=True)
+        b_launches, b_seconds = launches, seconds
+
+        # (c) both gates off: the PNG holds the pipeline's bytes
+        seen.clear()
+        ex = run(root, "ungated", run_pre_filter=False, run_post_filter=False)
+        line, launches, seconds = go(ex)
+        require(line["status"] == "success", f"the ungated record succeeded ({line})")
+        png = decode_png(Path(line["payload"]["edited_file"]).read_bytes())
+        want_px = crop_composite(img, seen["edit"], seen["ground"].mask)
+        require(png.shape == img.shape and np.array_equal(png, want_px),
+                "edited_img/*.png decodes to the pipeline's bytes")
+        require(launches == full, f"run (c) launched {launches}, want {full}")
+        print(f"executor record (c), gates off: success in {seconds:.3f} s; "
+              f"{Path(line['payload']['edited_file']).name} decodes to the pipeline's "
+              f"{png.shape} bytes; launches {launches}", flush=True)
+    return b_launches, {"record_s": b_seconds, "stages": report}
+
+
 def main() -> int:
     import torch
 
@@ -647,6 +967,9 @@ def main() -> int:
     with phase("reference"):
         check_reference(dev)
         check_grounding_reference(dev)
+
+    with phase("scorer reference"):
+        check_scorer_reference(dev)
 
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
     # box_threshold 0.0: the random detector keeps boxes for the grounding
@@ -686,6 +1009,16 @@ def main() -> int:
         r_launches, r_seconds = color_alter_record(dev, zoo, k2_per_request)
         print(f"{card_line}: {r_seconds['record']:.3f} s per color_alter record", flush=True)
 
+    with phase("scorers"):
+        s_ms = scorers(dev, zoo)
+        print(f"{card_line}: " + ", ".join(f"{k} {v:.2f} ms" for k, v in s_ms.items()),
+              flush=True)
+
+    with phase("executor record"):
+        e_launches, e_timing = executor_record(dev, zoo, k2_per_request)
+        print(f"{card_line}: {e_timing['record_s']:.3f} s per gated executor record",
+              flush=True)
+
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
@@ -713,6 +1046,7 @@ def main() -> int:
         row["launches_w8a8_slice"] = q_launches[row["name"]]
         row["launches_ground"] = g_launches[row["name"]]
         row["launches_color_alter"] = r_launches[row["name"]]
+        row["launches_executor_record"] = e_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The grounding slot and the `color_alter` / `tone_transfer` edits of the
 PyTorch port against the JAX package's zoo and pipelines, at the tiny
-config with `box_threshold=0.0` (random weights keep boxes).
+config, whose `box_threshold=0.0` keeps the random detector's boxes.
 
 The same seeded Flax parameters go to both sides (the JAX zoo reads them as
 msgpack checkpoints, the port through the weight bridge), and the IP2P
@@ -59,7 +59,7 @@ def zoo_pair(tmp_path_factory):
     wdir = tmp_path_factory.mktemp("weights")
     for name, tree in params.items():
         save_params(tree, wdir / f"{name}.msgpack")
-    cfg = dataclasses.replace(tiny_zoo_config(), box_threshold=0.0)
+    cfg = tiny_zoo_config()
     jcfg = JaxZooConfig(canvas=cfg.canvas, gdino=JAX_GDINO, sam=JAX_SAM, ip2p_unet=JAX_UNET,
                         vae=JAX_VAE, text=JAX_TEXT, box_threshold=0.0)
     jzoo = JaxModelZoo(jcfg, weights_dir=wdir, allow_fallback_tokenizers=True)

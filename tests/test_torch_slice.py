@@ -43,7 +43,8 @@ def params():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every submodule loads neither jax, flax nor
+    """Importing the port and every submodule (the executor, the filters,
+    T5, BLIP-2, the ledger and rng among them) loads neither jax, flax nor
     anyedit_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -53,7 +54,10 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'anyedit_tpu'))\n"
         "assert not bad, bad\n"
-        "assert 'anyedit_tpu_torch.runtime.zoo' in sys.modules\n")
+        "for m in ('runtime.zoo', 'runtime.executor', 'filters.pre_filter',\n"
+        "          'filters.post_filter', 'filters.scorers', 'models.t5',\n"
+        "          'models.blip2', 'core.ledger', 'core.rng', 'core.png'):\n"
+        "    assert 'anyedit_tpu_torch.' + m in sys.modules, m\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

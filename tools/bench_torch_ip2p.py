@@ -11,6 +11,7 @@
     python3 tools/bench_torch_ip2p.py --profile --int8
     python3 tools/bench_torch_ip2p.py --latency [--int8]  # s per 100-step request
     python3 tools/bench_torch_ip2p.py --ground     # grounding stage + color_alter record
+    python3 tools/bench_torch_ip2p.py --scorers    # scorer slots + one executor record
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -24,8 +25,12 @@ kernel's bound and the one PyTorch call that computes the same function
 (`ops/kernel_check.py`). `--ground` times the full-width grounding stage
 (GroundingDINO SwinB at 800 px, SAM ViT-H at 1024) part by part and one
 `color_alter` record, each the median of 3 runs after a warm-up, beside
-its device-busy share and its device time by kernel class. Every line
-names the card and its power limit.
+its device-busy share and its device time by kernel class. `--scorers`
+does the same for the full-width scorer slots (CLIP-L vision and text,
+the aesthetic MLP, EVA ViT-g + Q-Former + FLAN-T5-XL yes/no) and one gated
+`color_alter` record through `FactoryExecutor` (pre-gate on the image size,
+as `chip_smoke.py`'s executor run (b)), with the record's seconds by
+executor stage. Every line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402  (the repo root, just put on the path)
-    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD,
+    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD, VQA_QUESTIONS,
 )
 
 SIZE = 512
@@ -493,11 +498,8 @@ def bench_ground(dev, runs: int = 3) -> list[dict]:
     device-busy ms, busy_share = busy / median, device ms and launches by
     kernel class, and the top kernels. Every part is timed before the
     first profiled call, so no timing follows a profiler session."""
-    import statistics
-
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from anyedit_tpu_torch.core.schema import InstructionRecord
     from anyedit_tpu_torch.edits.registry import get_pipeline
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
@@ -519,6 +521,18 @@ def bench_ground(dev, runs: int = 3) -> list[dict]:
             (f"ground() {GROUND_HW[0]}x{GROUND_HW[1]}", lambda: ground(img, phrase)),
             ("color_alter record (100 steps)",
              lambda: record(tb, rec, img, np.random.default_rng(0)))]
+    return timed_rows(work, runs)
+
+
+def timed_rows(work, runs: int) -> list[dict]:
+    """For each (label, fn): `runs` timed calls after a warm-up (host clock
+    around work that ends in a device synchronise), all parts before the
+    first profiled call; then one call each under `torch.profiler`."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     timed = []
     for _, fn in work:
         with torch.inference_mode():
@@ -548,6 +562,55 @@ def bench_ground(dev, runs: int = 3) -> list[dict]:
     return rows
 
 
+def bench_scorers(dev, runs: int = 3) -> list[dict]:
+    """The full-width scorer slots on a 480x640 image, and one gated
+    color_alter record through `FactoryExecutor` with every scorer
+    installed (a fresh executor and ledger each call; the pre-gate sees the
+    image size only, as random weights fail its CLIP, aesthetic and
+    object-ratio thresholds), as `bench_ground` times its parts. The record's
+    row adds its mean seconds by executor stage over the timed calls."""
+    import tempfile
+
+    import numpy as np
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.filters.pre_filter import PreScores
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    tb = zoo.toolbox(slots=("clip", "aesthetic", "vqa"))
+    img = np.random.default_rng(7).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    rec = InstructionRecord.from_json(RECORD)
+    reports = []
+    with tempfile.TemporaryDirectory() as root:
+        def record():
+            ex = FactoryExecutor(tb, ExecutorConfig(output_root=f"{root}/{len(reports)}"))
+            scored = ex.pre_scorer
+
+            def size_only(r, i):
+                s = scored(r, i)
+                return PreScores(width=s.width, height=s.height)
+            ex.pre_scorer = size_only
+            ex.run([rec], lambda r: img)
+            reports.append(ex.timer.report())
+
+        work = [("clip_image (CLIP_L_VISION, 224)", lambda: tb.clip_image(img)),
+                ("clip_text (CLIP-L text + projection)",
+                 lambda: tb.clip_text(RECORD["output"])),
+                ("aesthetic (clip_image + MLP)", lambda: tb.extra["aesthetic"](img)),
+                ("vqa_yes_no (EVA_VIT_G + BLIP2_QFORMER + FLAN_T5_XL)",
+                 lambda: tb.vqa_yes_no(img, VQA_QUESTIONS[0])),
+                ("executor color_alter record (gated, 100 steps)", record)]
+        rows = timed_rows(work, runs)
+        with open(f"{root}/1/ledger.jsonl") as f:
+            status = [json.loads(line)["status"] for line in f]
+    timed = reports[1:1 + runs]          # the warm-up call comes first
+    rows[-1]["stage_mean_s"] = {k: float(np.mean([r[k]["total_s"] for r in timed]))
+                                for k in timed[0]}
+    rows[-1]["status"] = status
+    return rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -568,11 +631,13 @@ def main() -> int:
                       help="seconds per 100-step ip2p() request instead")
     mode.add_argument("--ground", action="store_true",
                       help="the grounding stage and one color_alter record instead")
+    mode.add_argument("--scorers", action="store_true",
+                      help="the scorer slots and one gated executor record instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
-                      or args.paths or args.ground):
+                      or args.paths or args.ground or args.scorers):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -597,6 +662,8 @@ def main() -> int:
         rows = [bench_latency(dev, args.int8)]
     elif args.ground:
         rows = bench_ground(dev)
+    elif args.scorers:
+        rows = bench_scorers(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
