@@ -1,0 +1,56 @@
+"""Classifier-free-guidance samplers over an `eps_fn` (counterpart of
+`anyedit_tpu/diffusion/sampling.py`): masked inpainting so far.
+
+The JAX package draws the start latents from `key` and the re-noise noise
+from `fold_in(key, 1)` inside the function; here both are inputs (drawn
+from a `torch.Generator` when absent, start latents first), as in
+`diffusion/ip2p.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from anyedit_tpu_torch.diffusion.ip2p import EpsFn, _noise
+from anyedit_tpu_torch.schedulers import NoiseSchedule, add_noise, ddim_init, ddim_step
+
+
+def sample_inpaint(eps_fn: EpsFn, ns: NoiseSchedule,
+                   image_latents: torch.Tensor, mask_latent: torch.Tensor,
+                   cond_text: torch.Tensor, uncond_text: torch.Tensor,
+                   num_steps: int = 50, guidance_scale: float = 7.5,
+                   masked_image_latents: Optional[torch.Tensor] = None,
+                   init_latents: Optional[torch.Tensor] = None,
+                   renoise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The 9-channel SD-inpaint loop: UNet input [latents, mask,
+    masked-image latents], 2-way CFG as one batch-2b UNet call per step in
+    the order [cond, uncond], and after every step the latents composited
+    with the original re-noised to the next level (the clean original after
+    the last step). Returns the latents (B, h, w, C).
+
+    mask_latent: (B, h, w, 1), 1 = the region to repaint, at latent size.
+    masked_image_latents: default `image_latents * (1 - mask_latent)`.
+    """
+    b = image_latents.shape[0]
+    st = ddim_init(ns, num_steps)
+    lat = _noise(image_latents, generator) if init_latents is None \
+        else init_latents.float()
+    if renoise is None:
+        renoise = _noise(image_latents, generator)
+    if masked_image_latents is None:
+        masked_image_latents = image_latents * (1.0 - mask_latent)
+    ctx = torch.cat([cond_text, uncond_text], dim=0)
+    cond_ch = torch.cat([mask_latent, masked_image_latents], dim=-1)
+    cond_ch2 = torch.cat([cond_ch, cond_ch], dim=0)
+    for i in range(num_steps):
+        t = st.timesteps[i]
+        unet_in = torch.cat([torch.cat([lat, lat], dim=0), cond_ch2], dim=-1)
+        e_c, e_u = eps_fn(unet_in, t.expand(2 * b), ctx).chunk(2, dim=0)
+        lat = ddim_step(ns, st, i, e_u + guidance_scale * (e_c - e_u), lat)
+        ren = (add_noise(ns, image_latents, renoise, st.timesteps[i + 1])
+               if i + 1 < num_steps else image_latents)
+        lat = mask_latent * lat + (1.0 - mask_latent) * ren
+    return lat

@@ -1,10 +1,13 @@
-"""Global edits: color_alter / tone_transfer via the IP2P editor
-(counterpart of `anyedit_tpu/edits/global_.py`).
+"""Global edits: color_alter / tone_transfer / appearance_alter via the
+IP2P editor (counterpart of `anyedit_tpu/edits/global_.py`).
 
 color_alter grounds the edited object, runs the 100-step IP2P edit (s_txt
 8.0, s_img 0.9) on the whole image, and pastes the edited region back onto
 the original with a feathered seam; tone_transfer keeps the whole edited
-frame.
+frame. appearance_alter (also material_alter) grounds the object, takes
+faces out of its mask, and makes a masked IP2P edit at 50 steps, 8.0 / 1.5:
+the JAX pipeline's route when the toolbox has no UltraEdit slot, as the
+port's has not yet.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ import numpy as np
 import torch
 
 from anyedit_tpu_torch.core.schema import InstructionRecord
-from anyedit_tpu_torch.edits.types import EditOutcome, Toolbox
+from anyedit_tpu_torch.edits.types import EditOutcome, Toolbox, to_numpy
 from anyedit_tpu_torch.ops.morphology import dilate, gaussian_blur
 from anyedit_tpu_torch.ops.resize import to_u8
 
-STEPS, S_TXT, S_IMG = 100, 8.0, 0.9
+STEPS, S_TXT, S_IMG = 100, 8.0, 0.9                  # color_alter, tone_transfer
+APPEARANCE_STEPS, APPEARANCE_S_TXT, APPEARANCE_S_IMG = 50, 8.0, 1.5
 
 
 def crop_composite(original: np.ndarray, edited: np.ndarray, mask,
@@ -50,3 +54,20 @@ def tone_transfer(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
     edited = np.asarray(tb.ip2p(image, rec.edit, None,
                                 steps=STEPS, s_txt=S_TXT, s_img=S_IMG))
     return EditOutcome(True, edited=edited)
+
+
+def appearance_alter(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
+                     rng: np.random.Generator) -> EditOutcome:
+    """The grounded mask minus faces (attribute_pipeline_tool.py:104-130),
+    edited by the masked IP2P editor."""
+    g = tb.ground(image, rec.edited_object, mode="merge")
+    if g is None or not bool(g.mask.any()):
+        return EditOutcome(False, reason="object not found")
+    mask = to_numpy(g.mask)
+    gf = tb.ground(image, "face", mode="merge")
+    if gf is not None and bool(gf.mask.any()):
+        mask = mask & ~to_numpy(gf.mask)
+    edited = np.asarray(tb.ip2p(image, rec.edit, mask.astype(np.float32),
+                                steps=APPEARANCE_STEPS, s_txt=APPEARANCE_S_TXT,
+                                s_img=APPEARANCE_S_IMG))
+    return EditOutcome(True, edited=edited, mask=mask)

@@ -3,12 +3,20 @@ over the edit types ported so far."""
 
 from __future__ import annotations
 
-from anyedit_tpu_torch.edits import global_
+from anyedit_tpu_torch.edits import global_, implicit, local
 from anyedit_tpu_torch.edits.types import Pipeline
 
 EDIT_PIPELINES: dict[str, Pipeline] = {
+    "add": local.add,
+    "remove": local.remove,
+    "counting": local.remove,
+    "replace": local.replace,
+    "background_change": local.background_change,
     "color_alter": global_.color_alter,
     "tone_transfer": global_.tone_transfer,
+    "appearance_alter": global_.appearance_alter,
+    "material_alter": global_.appearance_alter,
+    "style_change": implicit.style_change,
 }
 
 

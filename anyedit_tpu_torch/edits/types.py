@@ -1,9 +1,9 @@
 """Shared types for the per-task editing pipelines.
 
-A copy of `anyedit_tpu/edits/types.py` without its `jax` import. A pipeline
-is a function `(toolbox, record, image_u8, rng) -> EditOutcome`; the
-`Toolbox` carries the zoo's model closures, so one resident copy of each
-model serves every pipeline.
+A copy of `anyedit_tpu/edits/types.py` without its `jax` import, and
+`to_numpy`. A pipeline is a function `(toolbox, record, image_u8, rng) ->
+EditOutcome`; the `Toolbox` carries the zoo's model closures, so one
+resident copy of each model serves every pipeline.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from anyedit_tpu_torch.core.schema import InstructionRecord
 
@@ -61,3 +62,9 @@ class Toolbox:
 # A pipeline: (toolbox, record, image_u8 HWC, rng) -> EditOutcome
 Pipeline = Callable[[Toolbox, InstructionRecord, np.ndarray,
                      np.random.Generator], EditOutcome]
+
+
+def to_numpy(x) -> np.ndarray:
+    """A host numpy copy of a tensor (any device) or an array: grounders give
+    their masks as either."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -58,6 +58,7 @@ class UNetConfig:
 
 SD15_UNET = UNetConfig(num_heads=8)   # head_dim 40/80/160/160 per level
 SD15_IP2P_UNET = dataclasses.replace(SD15_UNET, in_channels=8)
+SD15_INPAINT_UNET = dataclasses.replace(SD15_UNET, in_channels=9)
 TINY_UNET = UNetConfig(block_channels=(32, 64), attn_levels=(True, False),
                        num_head_channels=8, context_dim=32, num_groups=8,
                        layers_per_block=1)

@@ -1,5 +1,7 @@
-"""The model zoo's grounding and IP2P editor slots (counterpart of the
-`grounder()`, `ip2p()` and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
+"""The model zoo's grounding, editing, inpainting and scorer slots
+(counterpart of the `grounder()`, `ip2p()`, `inpainter()`, `sd_inpainter()`,
+`clip_towers()`, `aesthetic_fn()`, `vqa_fn()` and `toolbox()` of
+`anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
 count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
@@ -8,31 +10,43 @@ the phrase's token span (or the whole caption when the phrase is not
 found), box selection and NMS, SAM at its own 1024 bucket with the boxes
 scaled into its space, the best of each box's masks by predicted IoU, a
 bilinear resize back to (h, w), and the per-mode combination; `None` when no
-box is kept. The JAX zoo's `ground.batch` (the chunk-mode executor's) is
-not ported yet.
+box is kept. `ground.batch(images, phrases, modes, count_ks)` (the
+chunk-mode executor's) makes one detector forward and one SAM encode for
+the whole list, then the same per-record tail.
 
 `ModelZoo(cfg, device).ip2p()` returns `edit(image_u8, instruction, mask01,
 steps, s_txt, s_img, seed)`: lanczos resize to the canvas -> VAE encode ->
 CLIP text for the instruction and for "" -> 3-way-CFG DDIM loop on the IP2P
-UNet -> VAE decode -> lanczos resize back to the input size. Parameters come
-from Flax trees through `weights/bridge.py` (`params=`), or from a seeded
-init on the device. With `quant_ip2p` (or `quant_diffusion`) the float
-UNet parameters are quantized once at slot build into the W8A8 UNet, as the
-JAX zoo does. The JAX zoo's fused/stepwise compile split and its LCM branch
-have no counterpart here: the port runs one Python denoise loop.
+UNet -> VAE decode -> lanczos resize back to the input size.
+`edit.batch(images, instructions, masks, steps, s_txt, s_img, seeds)` runs
+the same over chunks of at most `edit_batch_bucket` records, one batch-3n
+UNet call per step, each record's start latents drawn as `edit` draws them
+for its seed. Parameters come from Flax trees through `weights/bridge.py`
+(`params=`), or from a seeded init on the device. With `quant_ip2p` (or
+`quant_diffusion`) the float UNet parameters are quantized once at slot
+build into the W8A8 UNet, as the JAX zoo does. The JAX zoo's fused/stepwise
+compile split, its bucket padding and its LCM branch have no counterpart
+here: the port runs one Python denoise loop at the batch it is given.
+
+`inpainter()` returns LaMa's `inpaint(img01, mask01) -> img01` (reflect-
+padded to a multiple of 8, fp32, cuDNN's TF32 off for the call);
+`sd_inpainter()` the SD1.5 inpaint UNet's `inpaint(image_u8, mask01,
+prompt, negative)` (the mask at latent size above 0.25, 50 steps, scale
+7.5; W8A8 with `quant_diffusion`).
 
 The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
 clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
-to the tower's size, ImageNet mean and std, as the JAX zoo); `aesthetic_fn()`
+to the tower's size, ImageNet mean and std, as the JAX zoo), and
+`clip_image.batch(images)` one tower forward for a list; `aesthetic_fn()`
 the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
 EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
-"aesthetic", "vqa") to a Toolbox, and `toolbox(slots=...)` installs them
-beside `ground` and `ip2p`. The per-image CLIP path only: the JAX zoo's
-`clip_image.batch` (chunk mode) is not ported yet.
+"aesthetic", "vqa") or the SD inpainter ("sd_inpaint") to a Toolbox, and
+`toolbox(slots=...)` installs them beside `ground`, `inpaint` and `ip2p`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping, Optional, Sequence
 
@@ -40,7 +54,7 @@ import numpy as np
 import torch
 
 from anyedit_tpu_torch.core.config import CanvasConfig
-from anyedit_tpu_torch.diffusion import ip2p_edit
+from anyedit_tpu_torch.diffusion import ip2p_edit, sample_inpaint
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
@@ -53,13 +67,14 @@ from anyedit_tpu_torch.models.clip import (
 )
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
+from anyedit_tpu_torch.models.lama import LAMA, TINY_LAMA, LamaConfig, LamaGenerator, pad_to_modulo
 from anyedit_tpu_torch.models.sam import (
     SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
 )
 from anyedit_tpu_torch.models.swin import TINY_SWIN
 from anyedit_tpu_torch.models.t5 import TINY_T5
 from anyedit_tpu_torch.models.unet_sd import (
-    SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
+    SD15_INPAINT_UNET, SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
 from anyedit_tpu_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
@@ -73,8 +88,8 @@ from anyedit_tpu_torch.weights.init import seeded_init_
 
 @dataclasses.dataclass
 class ZooConfig:
-    """The fields of the JAX `ZooConfig` that the grounding, IP2P and scorer
-    slots read. `t5_hash_vocab` stands for the JAX config's
+    """The fields of the JAX `ZooConfig` that the grounding, editing,
+    inpainting and scorer slots read. `t5_hash_vocab` stands for the JAX config's
     `flux_text.vocab_size`: with no SentencePiece model the VQA question's
     hash ids are taken modulo it before the modulo of the LM's vocabulary."""
 
@@ -82,7 +97,9 @@ class ZooConfig:
     gdino: GDINOConfig = GDINO_SWINB
     sam: SAMConfig = SAM_VIT_H
     box_threshold: float = 0.25
+    lama: LamaConfig = LAMA
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
+    inpaint_unet: UNetConfig = SD15_INPAINT_UNET
     vae: VAEConfig = SD_VAE
     text: CLIPTextConfig = CLIP_L_TEXT
     vision: CLIPVisionConfig = CLIP_L_VISION   # clip_image tower
@@ -92,15 +109,17 @@ class ZooConfig:
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
-    # pure-sampling UNet slots in the JAX zoo; of those the port has only
-    # the IP2P slot so far.
+    # pure-sampling UNet slots: of those the port has the SD inpainter.
     quant_ip2p: bool = False
     quant_diffusion: bool = False
+    # records per batch-3n UNet call of `ip2p().batch` (the chunk-mode
+    # executor's batched edit stage)
+    edit_batch_bucket: int = 4
 
 
 def tiny_zoo_config() -> ZooConfig:
-    """The grounding, IP2P and scorer fields of the JAX package's hermetic
-    tiny config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
+    """The grounding, editing, inpainting and scorer fields of the JAX
+    package's hermetic tiny config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
     canvas, every box kept above a score of 0. Two differences: every tower
     is fp32 (the JAX config leaves the tiny Swin, BERT, Q-Former and T5 in
     bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
@@ -114,7 +133,9 @@ def tiny_zoo_config() -> ZooConfig:
             TINY_GDINO, swin=dataclasses.replace(TINY_SWIN, **f32),
             bert=dataclasses.replace(TINY_BERT, vocab_size=30522, **f32), **f32),
         sam=dataclasses.replace(TINY_SAM, **f32),
+        lama=TINY_LAMA,
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
+        inpaint_unet=dataclasses.replace(TINY_UNET, in_channels=9, **f32),
         vae=dataclasses.replace(TINY_VAE, **f32),
         text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32),
         vision=dataclasses.replace(TINY_VISION, **f32),
@@ -139,7 +160,7 @@ class ModelZoo:
     a model on "cuda" raises where CUDA is absent (no fallback to the CPU).
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
-    "gdino", "sam", "unet_ip2p", "vae", "clip_text", "clip_vision",
+    "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "vae", "clip_text", "clip_vision",
     "clip_text_proj", "aesthetic", "eva_vit" and "blip2"; a missing slot
     gets a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
@@ -246,20 +267,58 @@ class ModelZoo:
         unet.load_state_dict(quantize_state_dict(unet, float_sd), strict=True)
         return unet.eval().requires_grad_(False)
 
+    def _unet(self, slot: str, ucfg: UNetConfig, quant: bool) -> UNet2DCondition:
+        """The UNet of a diffusion slot: W8A8 from its float parameters with
+        `quant`, else bridged from `params` or seeded."""
+        if quant:
+            return self._quantize_unet(ucfg, slot)
+        return self._load(UNet2DCondition(ucfg, device=self.device), slot,
+                          lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels)))
+
     def _ip2p_core(self):
         """(unet, noise_schedule)."""
         c = self.cfg
-        ucfg = c.ip2p_unet
+        return self._get("ip2p_core", lambda: (
+            self._unet("unet_ip2p", c.ip2p_unet, c.quant_ip2p or c.quant_diffusion),
+            make_noise_schedule(device=self.device)))
 
-        def build():
-            if c.quant_ip2p or c.quant_diffusion:
-                unet = self._quantize_unet(ucfg, "unet_ip2p")
-            else:
-                unet = self._load(UNet2DCondition(ucfg, device=self.device),
-                                  "unet_ip2p", lambda t: bridge.unet_state_dict(
-                                      t, len(ucfg.block_channels)))
-            return unet, make_noise_schedule(device=self.device)
-        return self._get("ip2p_core", build)
+    def _inpaint_core(self):
+        """(9-channel inpaint unet, noise_schedule); W8A8 with
+        `quant_diffusion`, as the JAX zoo's `sd_inpainter`."""
+        c = self.cfg
+        return self._get("inpaint_core", lambda: (
+            self._unet("unet_inpaint", c.inpaint_unet, c.quant_diffusion),
+            make_noise_schedule(device=self.device)))
+
+    def _lama(self) -> LamaGenerator:
+        lcfg = self.cfg.lama
+        return self._get("lama", lambda: self._load(
+            LamaGenerator(lcfg, device=self.device), "lama",
+            lambda t: bridge.lama_state_dict(t, lcfg.ratio_g)))
+
+    # pixel <-> latent helpers (every diffusion slot)
+    def _to_latents(self, images) -> torch.Tensor:
+        """(B, h, w, C) scaled latents of a list of (H, W, 3) uint8 images:
+        lanczos resize to the canvas, [-1, 1], one VAE encode in bf16."""
+        size = self.cfg.canvas.edit_size
+        px = torch.stack([normalize_to_unit(resize_image(
+            torch.as_tensor(im, device=self.device).float(), size, size, "lanczos"))
+            for im in images])
+        return self._vae().encode(px.to(torch.bfloat16))[0] * self.cfg.vae.scaling_factor
+
+    def _from_latents(self, lat: torch.Tensor, hws) -> list[np.ndarray]:
+        """One VAE decode of (B, h, w, C) latents -> B uint8 images, each
+        lanczos-resized to its (H, W) of `hws`."""
+        imgs = self._vae().decode((lat / self.cfg.vae.scaling_factor).to(torch.bfloat16))
+        return [to_u8(resize_image(denormalize_to_u8(im).float(), h, w, "lanczos")).cpu().numpy()
+                for im, (h, w) in zip(imgs, hws)]
+
+    def _latent_mask(self, mask01, threshold: float) -> torch.Tensor:
+        """(h, w, 1) {0, 1} fp32: the (H, W) mask resized bilinear to the
+        latent size and thresholded (> 0.5 for IP2P, > 0.25 for SD-inpaint)."""
+        lh = self.cfg.canvas.edit_size // self.cfg.canvas.latent_down
+        m = torch.as_tensor(mask01, device=self.device).float()[..., None]
+        return (resize_image(m, lh, lh, "bilinear") > threshold).float()
 
     # ---- the slots -------------------------------------------------------
     def _pixels(self, image_u8, size: int) -> torch.Tensor:
@@ -303,23 +362,56 @@ class ModelZoo:
             gd, sam = self._gdino(), self._sam()
             dev = self.device
 
+            def finish(logits, boxes, span, hw, sam_embed, mode, count_k):
+                """One record's tail: box selection, SAM decode of the kept
+                boxes (`sam_embed()` -> (embedding (1, ...), xyxy scale),
+                called only when a box is kept), the best mask of each,
+                resized to (h, w), and the per-mode combination."""
+                bx, sc, keep = select_boxes(logits, boxes, span, hw,
+                                            box_threshold=c.box_threshold)
+                if not bool(keep.any()):
+                    return None
+                emb, scale = sam_embed()
+                masks, iou = sam.decode_boxes(emb, (bx * scale)[None])
+                sel = masks[torch.arange(masks.shape[0], device=dev), iou.argmax(dim=-1)]
+                sel = resize_image(sel[..., None], hw[0], hw[1], "bilinear")[..., 0]
+                sel = torch.where(keep[:, None, None], sel, -1.0)
+                return grounding_result(sel, bx, sc, keep, hw, mode, count_k)
+
             @torch.inference_mode()
             def ground(image_u8, phrase: str, mode: str = "merge",
                        count_k: int | None = None):
                 """-> GroundingResult on the zoo's device, or None."""
-                h, w = image_u8.shape[:2]
                 pixels, ids, mask, span = self.detector_inputs(image_u8, phrase)
                 logits, boxes = gd(pixels, ids, mask)
-                bx, sc, keep = select_boxes(logits[0], boxes[0], span, (h, w),
-                                            box_threshold=c.box_threshold)
-                if not bool(keep.any()):
-                    return None
-                sam_px, scale = self.sam_inputs(image_u8)
-                masks, iou = sam.decode_boxes(sam.encode(sam_px), (bx * scale)[None])
-                sel = masks[torch.arange(masks.shape[0], device=dev), iou.argmax(dim=-1)]
-                sel = resize_image(sel[..., None], h, w, "bilinear")[..., 0]
-                sel = torch.where(keep[:, None, None], sel, -1.0)
-                return grounding_result(sel, bx, sc, keep, (h, w), mode, count_k)
+
+                def sam_embed():
+                    sam_px, scale = self.sam_inputs(image_u8)
+                    return sam.encode(sam_px), scale
+                return finish(logits[0], boxes[0], span, image_u8.shape[:2], sam_embed,
+                              mode, count_k)
+
+            @torch.inference_mode()
+            def ground_batch(images, phrases, modes=None, count_ks=None):
+                """`ground` over a list: ONE detector forward over the
+                records' pixels and ids, ONE SAM encode over their SAM pixels,
+                then each record's tail with its own mode and count_k. No
+                padding: the batch is the list."""
+                n = len(images)
+                if len(phrases) != n:
+                    raise ValueError(f"{n} images, {len(phrases)} phrases")
+                modes = modes or ["merge"] * n
+                count_ks = count_ks or [None] * n
+                det = [self.detector_inputs(im, ph) for im, ph in zip(images, phrases)]
+                logits, boxes = gd(*(torch.cat([d[i] for d in det]) for i in range(3)))
+                sam_in = [self.sam_inputs(im) for im in images]
+                embs = sam.encode(torch.cat([px for px, _ in sam_in]))
+                return [finish(logits[i], boxes[i], det[i][3], images[i].shape[:2],
+                               lambda i=i: (embs[i:i + 1], sam_in[i][1]),
+                               modes[i], count_ks[i])
+                        for i in range(n)]
+
+            ground.batch = ground_batch
             return ground
         return self._get("ground", build)
 
@@ -352,7 +444,9 @@ class ModelZoo:
 
     def clip_towers(self):
         """(clip_image(image_u8) -> (1, P), clip_text(text) -> (1, P)), both
-        L2-normed fp32 on the device: the filter_tool/utils.py:15-40 pair."""
+        L2-normed fp32 on the device: the filter_tool/utils.py:15-40 pair.
+        `clip_image.batch(images)` makes one tower forward for a list and
+        returns one (1, P) embedding per image."""
         def build():
             c = self.cfg
             vis, tm = self._vision("clip_vision", c.vision), self._text_proj()
@@ -362,9 +456,15 @@ class ModelZoo:
                 return vis(self._pixels(image_u8, c.vision.image_size))[1]
 
             @torch.inference_mode()
+            def clip_image_batch(images):
+                z = vis(torch.cat([self._pixels(im, c.vision.image_size) for im in images]))[1]
+                return [z[i:i + 1] for i in range(len(images))]
+
+            @torch.inference_mode()
             def clip_text(text: str):
                 ids = torch.from_numpy(self._clip_ids(text, c.text.max_len))
                 return tm(ids.to(self.device))
+            clip_image.batch = clip_image_batch
             return clip_image, clip_text
         return self._get("clip_towers", build)
 
@@ -409,8 +509,10 @@ class ModelZoo:
         return self._get("vqa", build)
 
     def install(self, tb: Toolbox, slot: str) -> None:
-        """Build one named scorer slot and attach it to the toolbox."""
-        if slot == "clip":
+        """Build one named slot and attach it to the toolbox."""
+        if slot == "sd_inpaint":
+            tb.sd_inpaint = self.sd_inpainter()
+        elif slot == "clip":
             tb.clip_image, tb.clip_text = self.clip_towers()
         elif slot == "aesthetic":
             tb.extra["aesthetic"] = self.aesthetic_fn()
@@ -418,11 +520,12 @@ class ModelZoo:
             tb.vqa_yes_no = self.vqa_fn()
         else:
             raise KeyError(f"unknown toolbox slot {slot!r} "
-                           "(ported: 'clip', 'aesthetic', 'vqa')")
+                           "(ported: 'sd_inpaint', 'clip', 'aesthetic', 'vqa')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
-        """A Toolbox with `ground` and `ip2p`, and the named scorer slots."""
-        tb = Toolbox(ground=self.grounder(), ip2p=self.ip2p())
+        """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
+        `.batch`), and the named slots, as the JAX zoo builds it."""
+        tb = Toolbox(ground=self.grounder(), inpaint=self.inpainter(), ip2p=self.ip2p())
         for s in dict.fromkeys(slots):
             self.install(tb, s)
         return tb
@@ -431,10 +534,15 @@ class ModelZoo:
         def build():
             c = self.cfg
             unet, ns = self._ip2p_core()
-            vae = self._vae()
+            self._vae()                     # built with the slot
             text = self._text_encoder()
             dev = self.device
-            sf = c.vae.scaling_factor
+
+            def run(lat, cond, mask, init, renoise, steps, s_txt, s_img):
+                return ip2p_edit(unet, ns, lat, cond, text("").to(torch.bfloat16).expand_as(cond),
+                                 num_steps=steps, guidance_scale=s_txt,
+                                 image_guidance_scale=s_img, mask=mask,
+                                 init_latents=init.to(dev), renoise=renoise)
 
             @torch.inference_mode()
             def edit(image_u8, instruction: str, mask01=None, steps: int = 50,
@@ -446,31 +554,125 @@ class ModelZoo:
                 The start latents and the masked edit's re-noise noise are
                 drawn from `torch.Generator(seed)` unless given (NHWC,
                 (1, size/down, size/down, latent channels))."""
-                size = c.canvas.edit_size
-                img = torch.as_tensor(image_u8, device=dev)
-                x = resize_image(img.float(), size, size, "lanczos")
-                lat_in = vae.encode(normalize_to_unit(x)[None].to(torch.bfloat16)
-                                    )[0] * sf
-                cond = text(instruction).to(torch.bfloat16)
-                uncond = text("").to(torch.bfloat16)
-                m = None
-                if mask01 is not None:
-                    lh = size // c.canvas.latent_down
-                    mask = torch.as_tensor(mask01, device=dev).float()
-                    m = (resize_image(mask[..., None], lh, lh, "bilinear") > 0.5
-                         ).float()[None]
+                lat_in = self._to_latents([image_u8])
+                m = None if mask01 is None else self._latent_mask(mask01, 0.5)[None]
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 if init_latents is None:
                     init_latents = torch.randn(lat_in.shape, generator=gen, device=dev)
                 if renoise is None:
                     renoise = torch.randn(lat_in.shape, generator=gen, device=dev)
-                out = ip2p_edit(unet, ns, lat_in, cond, uncond, num_steps=steps,
-                                guidance_scale=s_txt, image_guidance_scale=s_img,
-                                mask=m, init_latents=init_latents.to(dev),
-                                renoise=renoise.to(dev))
-                img_out = vae.decode((out / sf).to(torch.bfloat16))[0]
-                u8 = denormalize_to_u8(img_out)
-                h, w = img.shape[:2]
-                return to_u8(resize_image(u8.float(), h, w, "lanczos")).cpu().numpy()
+                out = run(lat_in, text(instruction).to(torch.bfloat16), m, init_latents,
+                          renoise.to(dev), steps, s_txt, s_img)
+                return self._from_latents(out, [image_u8.shape[:2]])[0]
+
+            @torch.inference_mode()
+            def edit_batch(images, instructions, masks=None, steps: int = 50,
+                           s_txt: float = 8.0, s_img: float = 0.9, seeds=None,
+                           init_latents: Optional[torch.Tensor] = None,
+                           renoise: Optional[torch.Tensor] = None) -> list[np.ndarray]:
+                """`edit` over a list, in chunks of at most `edit_batch_bucket`
+                records: one VAE encode, one batch-3n UNet call per step and
+                one VAE decode per chunk. Record i's start latents are
+                `init_latents[i]` or the first draw of `torch.Generator(
+                seeds[i])` (default seeds 0..n-1), as `edit` draws them, so an
+                unmasked record equals its `edit` up to batch-size numerics.
+                With a mask anywhere in a chunk, unmasked records take an
+                all-ones mask and the chunk one batch-wide re-noise draw
+                (`renoise[chunk]`, or `torch.Generator(0)`'s first draw), as the
+                JAX `ip2p_batch_fn` does; per-record re-noise parity is no
+                contract there."""
+                n = len(images)
+                if len(instructions) != n:
+                    raise ValueError(f"{n} images, {len(instructions)} instructions")
+                masks = list(masks) if masks is not None else [None] * n
+                seeds = list(seeds) if seeds is not None else list(range(n))
+                out: list[np.ndarray] = []
+                for s0 in range(0, n, c.edit_batch_bucket):
+                    part = slice(s0, s0 + c.edit_batch_bucket)
+                    imgs = images[part]
+                    lat = self._to_latents(imgs)
+                    cond = torch.cat([text(t) for t in instructions[part]]).to(torch.bfloat16)
+                    init = init_latents[part] if init_latents is not None else torch.cat([
+                        torch.randn((1,) + lat.shape[1:], device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(sd))
+                        for sd in seeds[part]])
+                    mask = ren = None
+                    if any(m is not None for m in masks[part]):
+                        ones = torch.ones(lat.shape[1:3] + (1,), device=dev)
+                        mask = torch.stack([ones if m is None else self._latent_mask(m, 0.5)
+                                            for m in masks[part]])
+                        ren = renoise[part].to(dev) if renoise is not None else torch.randn(
+                            lat.shape, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(0))
+                    lat = run(lat, cond, mask, init, ren, steps, s_txt, s_img)
+                    out += self._from_latents(lat, [im.shape[:2] for im in imgs])
+                return out
+
+            edit.batch = edit_batch
             return edit
         return self._get("ip2p", build)
+
+    def inpainter(self):
+        """LaMa: `inpaint(img01 (H, W, 3), mask01 (H, W)) -> img01` as numpy
+        fp32, reflect-padded to a multiple of 8 and cropped back. cuDNN runs
+        the slot's fp32 convolutions in full fp32 (TF32 off for the call,
+        restored after), the precision of the JAX CPU reference."""
+        def build():
+            lama = self._lama()
+            dev = self.device
+
+            @torch.inference_mode()
+            def inpaint(img01, mask01) -> np.ndarray:
+                x, (h, w) = pad_to_modulo(
+                    torch.as_tensor(img01, dtype=torch.float32, device=dev)[None], 8)
+                m, _ = pad_to_modulo(
+                    torch.as_tensor(mask01, dtype=torch.float32, device=dev)[None, ..., None], 8)
+                with _no_tf32_convs():
+                    out = lama(x, m)
+                return out[0, :h, :w].cpu().numpy()
+            return inpaint
+        return self._get("inpaint", build)
+
+    def sd_inpainter(self):
+        """`inpaint(image_u8, mask01 (H, W), prompt, negative="", steps=50,
+        scale=7.5, seed=0) -> image_u8`: the SD1.5 9-channel inpaint UNet
+        through `sample_inpaint`, the mask resized bilinear to latent size
+        and kept above 0.25. Start latents and re-noise noise are drawn from
+        `torch.Generator(seed)` (in that order) unless given."""
+        def build():
+            unet, ns = self._inpaint_core()
+            self._vae()
+            text = self._text_encoder()
+            dev = self.device
+
+            @torch.inference_mode()
+            def inpaint(image_u8, mask01, prompt: str, negative: str = "", steps: int = 50,
+                        scale: float = 7.5, seed: int = 0,
+                        init_latents: Optional[torch.Tensor] = None,
+                        renoise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([image_u8])
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                if init_latents is None:
+                    init_latents = torch.randn(lat.shape, generator=gen, device=dev)
+                if renoise is None:
+                    renoise = torch.randn(lat.shape, generator=gen, device=dev)
+                out = sample_inpaint(unet, ns, lat, self._latent_mask(mask01, 0.25)[None],
+                                     text(prompt).to(torch.bfloat16),
+                                     text(negative).to(torch.bfloat16), num_steps=steps,
+                                     guidance_scale=scale, init_latents=init_latents.to(dev),
+                                     renoise=renoise.to(dev))
+                return self._from_latents(out, [image_u8.shape[:2]])[0]
+            return inpaint
+        return self._get("sd_inpaint", build)
+
+
+@contextlib.contextmanager
+def _no_tf32_convs():
+    """cuDNN's fp32 convolutions in full fp32 inside the block (PyTorch's
+    default runs them in TF32); the previous setting is restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -27,17 +27,33 @@ import numpy as np
 import torch
 
 # layout transforms, named by the forward converter's transform. _CONV also
-# serves SAM's ConvTranspose (`t_convT`): (kH, kW, O, I) <-> torch (I, O, kH,
-# kW) is the same permutation. _LEAD is `t_pos_embed` (and the no-mask
-# embedding's reshape): the torch tensor has a leading axis of 1; _LEAD2 has
-# two (BLIP-2's EVA class embedding, (1, 1, H)).
+# serves SAM's and LaMa's ConvTranspose (`t_convT`, and `_lama_key`'s
+# transpose): (kH, kW, O, I) <-> torch (I, O, kH, kW) is the same
+# permutation. _LEAD is `t_pos_embed` (and the no-mask embedding's
+# reshape): the torch tensor has a leading axis of 1; _LEAD2 has two
+# (BLIP-2's EVA class embedding, (1, 1, H)). _FU and _FU_VEC are
+# `t_fu_pack` and `t_fu_vec`, LaMa's FourierUnit: torch interleaves (re, im)
+# per channel (2c, 2c + 1), the JAX module puts every re before every im,
+# so the 1x1 conv's I and O axes (and the BN vectors after it) are permuted.
 _CONV, _LINEAR, _ID, _LEAD, _LEAD2 = "conv", "linear", "id", "lead", "lead2"
+_FU, _FU_VEC = "fu_pack", "fu_vec"
+
+
+def _fu_perm(c: int) -> np.ndarray:
+    """JAX channel j <- torch channel perm[j]: evens (re), then odds (im)."""
+    return np.concatenate([np.arange(0, c, 2), np.arange(1, c, 2)])
+
+
 _INVERSE: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (3, 2, 0, 1)),     # HWIO -> OIHW
     _LINEAR: lambda w: np.transpose(w),                  # (in, out) -> (out, in)
     _ID: lambda w: w,
     _LEAD: lambda w: w[None],
     _LEAD2: lambda w: w[None, None],
+    _FU: lambda w: np.transpose(
+        w[:, :, np.argsort(_fu_perm(w.shape[2]))][..., np.argsort(_fu_perm(w.shape[3]))],
+        (3, 2, 0, 1)),
+    _FU_VEC: lambda w: w[np.argsort(_fu_perm(w.shape[0]))],
 }
 _FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _CONV: lambda w: np.transpose(w, (2, 3, 1, 0)),     # OIHW -> HWIO
@@ -45,6 +61,9 @@ _FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     _ID: lambda w: w,
     _LEAD: lambda w: w[0],
     _LEAD2: lambda w: w[0, 0],
+    _FU: lambda w: (lambda h: h[:, :, _fu_perm(h.shape[2])][..., _fu_perm(h.shape[3])])(
+        np.transpose(w, (2, 3, 1, 0))),
+    _FU_VEC: lambda w: w[_fu_perm(w.shape[0])],
 }
 
 
@@ -66,19 +85,21 @@ def _bridge(tree: Mapping[str, Any], key_fn) -> dict[str, torch.Tensor]:
     """key_fn(path) -> (key, transform) or (key, transform, (i, n)). The
     3-tuple form marks the leaf as part i of n stacked along dim 0 of one
     torch tensor (the thirds of a fused `in_proj_weight` / `in_proj_bias`);
-    a tuple of keys splits the leaf's rows one per key (SAM's stacked box
-    corners)."""
+    a tuple of keys splits the leaf's dim 0 one part per key: one row each
+    (SAM's stacked box corners), or the sizes given as the third element
+    (LaMa's last downsample, `convl2l` then `convl2g`)."""
     out: dict[str, Any] = {}
     parts: dict[str, list] = {}
     for path, leaf in _leaves(tree):
         key, tf, *part = key_fn(path)
         w = _INVERSE[tf](_keep_dtype(leaf))
-        if part:
+        if part and isinstance(key, str):
             i, n = part[0]
             parts.setdefault(key, [None] * n)[i] = w
             continue
+        sizes = part[0] if part else (1,) * len(key)
         items = [(key, w)] if isinstance(key, str) else \
-            [(k, w[i:i + 1]) for i, k in enumerate(key)]
+            list(zip(key, np.split(w, np.cumsum(sizes)[:-1], axis=0)))
         for k, r in items:
             if k in out:
                 raise KeyError(f"two Flax leaves map to {k!r}")
@@ -105,7 +126,7 @@ def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
             w = sd[key].detach().cpu().numpy()
         else:
             w = np.concatenate([sd[kk].detach().cpu().numpy() for kk in key], axis=0)
-        if part:
+        if part and isinstance(key, str):
             i, n = part[0]
             w = np.split(w, n, axis=0)[i]
         w = _FORWARD[tf](w)
@@ -694,3 +715,79 @@ def blip2_state_dict(tree: Mapping[str, Any]):
 
 def blip2_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
     return _to_tree(like, sd, _blip2_key)
+
+
+# ---- LaMa (convert.py `_lama_key`, `convert_lama`) --------------------------
+
+_BN = {"gamma": "weight", "beta": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _lama_key(path: tuple[str, ...], nd: int, nb: int, split: tuple[int, int]):
+    """`split`: the (local, global) widths of the last downsample, which the
+    JAX module runs as one conv and the checkpoint as `convl2l` and
+    `convl2g`."""
+    p = _strip(path)
+    name, leaf = p[0], p[-1]
+    kernel = leaf == "kernel"
+
+    def conv(k):
+        return f"{k}.{'weight' if kernel else 'bias'}", _CONV if kernel else _ID
+
+    def bn(k):
+        return f"{k}.{_BN[leaf]}", _ID
+
+    if name in ("stem", "stem_bn"):
+        return conv("model.1.ffc.convl2l") if name == "stem" else bn("model.1.bn_l")
+    if m := re.match(r"down_(bn_)?(\d+)$", name):
+        base, is_bn, last = f"model.{2 + int(m[2])}", m[1], int(m[2]) == nd - 1
+        if not last:
+            return bn(f"{base}.bn_l") if is_bn else conv(f"{base}.ffc.convl2l")
+        if is_bn:
+            return (bn(f"{base}.bn_l")[0], bn(f"{base}.bn_g")[0]), _ID, split
+        keys = (conv(f"{base}.ffc.convl2l"), conv(f"{base}.ffc.convl2g"))
+        return (keys[0][0], keys[1][0]), keys[0][1], split
+    if m := re.match(r"block_(\d+)$", name):
+        base = f"model.{2 + nd + int(m[1])}"
+        sub = p[1]
+        if sub in ("bn1_l", "bn1_g", "bn2_l", "bn2_g"):
+            return bn(f"{base}.conv{sub[2]}.bn_{sub[-1]}")
+        cb = f"{base}.conv{sub[-1]}.ffc"            # ffc1, ffc2
+        if p[2] != "g2g":
+            return conv(f"{cb}.conv{p[2]}")          # l2l, l2g, g2l
+        st = f"{cb}.convg2g"
+        s3 = p[3]
+        if s3 == "fu_conv":
+            return f"{st}.fu.conv_layer.{'weight' if kernel else 'bias'}", \
+                _FU if kernel else _FU_VEC
+        if s3 == "fu_bn":
+            return bn(f"{st}.fu.bn")[0], _FU_VEC
+        return {"down": lambda: conv(f"{st}.conv1.0"), "bn1": lambda: bn(f"{st}.conv1.1"),
+                "up": lambda: conv(f"{st}.conv2")}[s3]()
+    if m := re.match(r"up_(bn_)?(\d+)$", name):
+        i = 3 + nd + nb + 3 * int(m[2])
+        return bn(f"model.{i + 1}") if m[1] else conv(f"model.{i}")
+    if name == "out":
+        return conv(f"model.{4 + 4 * nd + nb}")
+    raise KeyError(f"unmapped LaMa param {'/'.join(path)}")
+
+
+def _lama_fn(tree: Mapping[str, Any], ratio_g: float):
+    p = tree.get("params", tree)
+    nd = sum(1 for k in p if re.match(r"down_\d+$", k))
+    nb = sum(1 for k in p if re.match(r"block_\d+$", k))
+    ch = int(np.asarray(p[f"down_{nd - 1}"]["bias"]).shape[0])
+    g = int(ch * ratio_g)
+    return lambda path: _lama_key(path, nd, nb, (ch - g, g))
+
+
+def lama_state_dict(tree: Mapping[str, Any], ratio_g: float = 0.75):
+    """Flax `LamaGenerator` params -> the port's `LamaGenerator` state dict
+    (the saicinpainting generator's keys); `ratio_g` splits the last
+    downsample into its local and global convs."""
+    return _bridge(tree, _lama_fn(tree, ratio_g))
+
+
+def lama_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
+              ratio_g: float = 0.75) -> dict[str, Any]:
+    """The port's LaMa state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _lama_fn(like, ratio_g))

@@ -1,5 +1,6 @@
 """Drive the PyTorch port on one NVIDIA GPU: every path that runs a hand
-kernel, the scorers, and one record through the factory executor.
+kernel, the scorers, one record through the factory executor, the
+inpainting edits, and one chunk through the executor's chunk mode.
 
     python3 chip_smoke.py
 
@@ -82,7 +83,35 @@ Phases, each printing its own line with the seconds it took:
 Between phases 5 and 6, `scorer reference` holds the tiny scorers (a
 CLIP-layout tower, an EVA-layout tower, the aesthetic MLP and Blip2VQA) in
 bf16 on the card against fp32 on the CPU, within twice the CPU's own bf16
-distance (at least 2^-8).
+distance (at least 2^-8); `inpaint reference` the tiny SD inpainter
+(`sample_inpaint` on the 9-channel UNet) the same way as phase 5 holds the
+IP2P slice; and `lama` LaMa at LAMA through the `inpainter()` entry point
+on one 477x633 image (reflect-padded to 480x640 and cropped back), with
+cuDNN's TF32 at PyTorch's default (on), so that the slot has to run its
+convolutions in fp32 itself: the card's slot against the CPU zoo's on the
+same weights, within LAMA_BOUND, with its ms on the card. The kernels phase
+also holds K1 and K2 at this slice's shapes (SLICE_K1, SLICE_K2): the
+batched edit's UNet at 2 x 3 rows (the chunk) and 4 x 3 (the bucket), the
+VAE at batch 2 and 4, GroundingDINO's four input projections at batch 4,
+and the SD inpainter's 2-way CFG UNet; each gets its own row in the kernels
+line, with the launches of the path that gives the kernel that shape. Then:
+ 14. slice 3 records: one background_change (SD inpainter, 50 steps) and
+     one style_change (IP2P, 50 steps) record through `get_pipeline` on the
+     full-width zoo: success, K1 500 each, seconds;
+ 15. chunk: on the production `ZooConfig` (box_threshold 0.25) with every
+     slot (ground, LaMa, IP2P, CLIP, aesthetic, VQA, SD inpainter), four
+     records (2 color_alter, 2 remove, each its own image array) through
+     `FactoryExecutor(grounding_batch=4)` with both gates forced open, then
+     per record: the chunk's report has ground_batch, clip_batch and
+     edit_batch, no batch call fell back, no live unmasked IP2P call was made
+     (the zoo's ip2p wrapped here), K1 one batched UNet call a step (1,000),
+     the ledger outcomes equal per-record mode's, and each batched edit is
+     within a mean of CHUNK_EDIT_MEAN_BOUND uint8 levels of its per-record
+     edit; seconds a record and peak allocated memory in both modes. Then
+     the bucket: four color_alter records, each its own image, in one
+     chunk, so the batched edit fills `edit_batch_bucket` (the UNet at
+     batch 12): the batch stages present, no fall-back, no live unmasked
+     IP2P call, the four edits in one batched call (K1 1,000).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -136,6 +165,38 @@ K4_SDPA_BOUND = {4096: 0.04}
 # noise prediction, a few bf16 roundings (2^-8 each) grown through 16
 # transformer blocks.
 K3_VS_DEFAULT_REL_L2 = 0.05
+# LaMa on the card (fp32, TF32 off) against the CPU's fp32 on its [0, 1]
+# output: the two sum the convolutions and FFTs in other orders.
+LAMA_BOUND = 1e-4
+# LaMa's image through the `inpainter()` slot: not a multiple of 8, so the
+# slot pads (to 480x640) and crops
+LAMA_HW = (477, 633)
+# The chunk: 2 color_alter (their edits batched, the UNet at 2 x 3 rows)
+# and 2 remove records (LaMa). The bucket: 4 color_alter records, whose
+# batched edit fills edit_batch_bucket (the UNet at 4 x 3 rows).
+CHUNK_TYPES = ("color_alter", "remove", "color_alter", "remove")
+BUCKET_TYPES = ("color_alter",) * 4
+# This slice's kernel shapes, each with the path whose run launches the
+# kernel at that shape and gives its row's launches: "chunk" (the batched
+# edit's UNet at 2 x 3 rows x 8 heads, its VAE at batch 2, GroundingDINO's
+# input projections at batch 4), "bucket" (the UNet at 4 x 3 rows, the VAE
+# at batch 4) and "sd" (the background_change record's SD inpainter: the
+# UNet at 2 CFG rows).
+SLICE_K1 = [((48, 4096, 40), "chunk"), ((48, 1024, 80), "chunk"),
+            ((96, 4096, 40), "bucket"), ((96, 1024, 80), "bucket"),
+            ((16, 4096, 40), "sd"), ((16, 1024, 80), "sd")]
+SLICE_K2 = [((6, 320, 64, 64), True, "chunk"), ((2, 128, 512, 512), True, "chunk"),
+            ((12, 320, 64, 64), True, "bucket"), ((4, 128, 512, 512), True, "bucket"),
+            ((2, 320, 64, 64), True, "sd")] + [
+    ((4,) + g[1:], False, "chunk") for g in K2_GDINO_SHAPES]
+PATHS = {"chunk": "chunk of 4 (2 color_alter edits batched: the UNet at batch 6; 2 remove)",
+         "bucket": "bucket of 4 color_alter edits (the UNet at batch 12)",
+         "sd": "background_change record (the SD inpainter's UNet at batch 2)"}
+# A batched 100-step bf16 edit against the same record's per-record edit:
+# the UNet at batch 6 against 3 tiles its GEMMs otherwise, and guidance 8
+# amplifies the bf16 differences over the steps. Mean uint8 distance; an
+# H100 measured 0.71 (largest pixel 6 levels).
+CHUNK_EDIT_MEAN_BOUND = 2.0
 
 
 @contextlib.contextmanager
@@ -167,6 +228,42 @@ def yardsticks(r: dict) -> str:
             f"({r['bound_by']}: {r['bound_term']}) | library {lib} [{r['library']}]")
 
 
+def report_k1(shape: str, r: dict) -> None:
+    print(f"K1 flash_nomax {shape}: max {r['max_abs_err']:.3e} mean "
+          f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
+          f"({r['tflops']:.1f} TFLOP/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
+          flush=True)
+    require(r["finite"] and r["mean_abs_err"] <= 2e-3 and r["max_abs_err"] <= 3e-2,
+            f"K1 {shape} agrees with its plain version")
+
+
+def report_k2(shape: str, r: dict) -> None:
+    print(f"K2 group_norm {shape}: max {r['max_abs_err']:.3e} mean "
+          f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
+          f"({r['gbps']:.0f} GB/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
+          flush=True)
+    require(r["finite"] and r["max_abs_err"] <= 5e-2 and r["mean_abs_err"] <= 2e-3,
+            f"K2 {shape} agrees with its plain version")
+
+
+def check_chunk_kernels(dev):
+    """K1 and K2 at SLICE_K1 / SLICE_K2, with the bounds of `check_kernels`.
+    Returns [(kernel, shape, row, path)]."""
+    from anyedit_tpu_torch.ops import kernel_check as kc
+
+    rows = []
+    for s, path in SLICE_K1:
+        r = kc.check_flash_nomax(*s, dev)
+        report_k1(str(s), r)
+        rows.append(("flash_nomax", str(s), r, path))
+    for s, silu, path in SLICE_K2:
+        tag = f"{s} {'silu' if silu else 'gdino'}"
+        r = kc.check_group_norm(s, silu, dev, iters=5 if s[1] == 128 else 10)
+        report_k2(tag, r)
+        rows.append(("group_norm", tag, r, path))
+    return rows
+
+
 def check_kernels(dev):
     from anyedit_tpu_torch.ops import kernel_check as kc
     import torch
@@ -175,12 +272,7 @@ def check_kernels(dev):
     k1 = [(str(s), kc.check_flash_nomax(*s, dev))
           for s in ((24, 4096, 40), (24, 1024, 80), (16, 4096, 40), (16, 1024, 80))]
     for shape, r in k1:
-        print(f"K1 flash_nomax {shape}: max {r['max_abs_err']:.3e} mean "
-              f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
-              f"({r['tflops']:.1f} TFLOP/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
-              flush=True)
-        require(r["finite"] and r["mean_abs_err"] <= 2e-3 and r["max_abs_err"] <= 3e-2,
-                f"K1 {shape} agrees with its plain version")
+        report_k1(shape, r)
     clamp = kc.check_flash_nomax_clamp(dev)
     print(f"K1 clamp case: max |out - v| {clamp['max_abs_err']:.3e}", flush=True)
     require(clamp["finite"] and clamp["max_abs_err"] <= 1e-2,
@@ -197,12 +289,7 @@ def check_kernels(dev):
                                magnitude=100.0))]
     k2 += [(f"{s} gdino", kc.check_group_norm(s, False, dev)) for s in K2_GDINO_SHAPES]
     for shape, r in k2:
-        print(f"K2 group_norm {shape}: max {r['max_abs_err']:.3e} mean "
-              f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms "
-              f"({r['gbps']:.0f} GB/s) plain {r['plain_ms']:.4f} ms{yardsticks(r)}",
-              flush=True)
-        require(r["finite"] and r["max_abs_err"] <= 5e-2 and r["mean_abs_err"] <= 2e-3,
-                f"K2 {shape} agrees with its plain version")
+        report_k2(shape, r)
 
     # K3: bf16 within one bf16 rounding of the output (plus 1e-5 for fp32
     # order near zero); fp32 within 2e-5 (tests/test_ops.py:26)
@@ -933,6 +1020,315 @@ def executor_record(dev, zoo, k2_per_request: int):
     return b_launches, {"record_s": b_seconds, "stages": report}
 
 
+def check_lama(dev):
+    """LaMa at LAMA (9 FFC blocks, seeded weights) through the `inpainter()`
+    entry point on one LAMA_HW image: the card's slot against the CPU zoo's
+    slot on the same weights and input. cuDNN's TF32 is at PyTorch's default
+    (on) for the phase, so the slot must turn it off itself and restore it;
+    the same padded forward with TF32 left on is printed beside, as what the
+    slot's fp32 buys. Returns (max abs error, ms of one slot call)."""
+    import torch
+    from anyedit_tpu_torch.models.lama import pad_to_modulo
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    cpu_zoo, card_zoo = ModelZoo(ZooConfig(), "cpu", seed=0), ModelZoo(ZooConfig(), dev, seed=0)
+    card_zoo._lama().load_state_dict(cpu_zoo._lama().state_dict())
+    rng = np.random.default_rng(8)
+    h, w = LAMA_HW
+    img = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    mask = np.zeros((h, w), np.float32)
+    mask[120:360, 200:440] = 1.0
+    ref = cpu_zoo.inpainter()(img, mask)
+    slot = card_zoo.inpainter()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default
+    try:
+        out = slot(img, mask)
+        require(torch.backends.cudnn.allow_tf32, "the slot restores cuDNN's TF32 setting")
+        err = float(np.abs(out - ref).max())
+        ms = time_ms(lambda: slot(img, mask), iters=5)
+        with torch.inference_mode():
+            x, _ = pad_to_modulo(torch.from_numpy(img)[None].to(dev), 8)
+            m, _ = pad_to_modulo(torch.from_numpy(mask)[None, ..., None].to(dev), 8)
+            tf32 = card_zoo._lama()(x, m)[0, :h, :w].cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tf32_err = float(np.abs(tf32 - ref).max())
+    print(f"LaMa (LAMA, 9 FFC blocks) through inpainter() on {h}x{w} (padded to "
+          f"{x.shape[1]}x{x.shape[2]}), cuDNN TF32 on outside the slot: card vs CPU max abs "
+          f"{err:.3e} (bound {LAMA_BOUND}); the same forward with TF32 left on "
+          f"{tf32_err:.3e}; {ms:.2f} ms a slot call on the card", flush=True)
+    require(out.shape == (h, w, 3) and bool(np.isfinite(out).all()) and err <= LAMA_BOUND,
+            f"the inpainter() slot on the card within {LAMA_BOUND} of the CPU's")
+    return err, ms
+
+
+def check_inpaint_reference(dev):
+    """The tiny SD inpainter (`sample_inpaint` on the 9-channel UNet) in bf16
+    on the card against fp32 on the CPU, same weights and noise, bounded by
+    the CPU's own bf16 error, as `check_reference` holds the IP2P slice."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+
+    def cfg(dtype):
+        return dataclasses.replace(
+            tiny, inpaint_unet=dataclasses.replace(tiny.inpaint_unet, dtype=dtype),
+            vae=dataclasses.replace(tiny.vae, dtype=dtype),
+            text=dataclasses.replace(tiny.text, dtype=dtype))
+
+    def models(z):
+        return z._inpaint_core()[0], z._vae(), z._text_model("clip_text", z.cfg.text)
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    for k in ("cpu16", "card16"):
+        for src, dst in zip(models(zoos["ref"]), models(zoos[k])):
+            dst.load_state_dict(src.state_dict())
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, (48, 40, 3), np.uint8)
+    mask = np.zeros((48, 40), np.float32)
+    mask[10:34, 6:30] = 1.0
+    noise = torch.from_numpy(rng.standard_normal((2, 1, 32, 32, 4)).astype(np.float32))
+    out = {k: z.sd_inpainter()(img, mask, "a red ball", "blurry", steps=3,
+                               init_latents=noise[0], renoise=noise[1]).astype(np.int32)
+           for k, z in zoos.items()}
+    err = {k: np.abs(out[k] - out["ref"]) for k in ("cpu16", "card16")}
+    for k, e in err.items():
+        print(f"tiny SD inpainter, {k} vs CPU fp32: uint8 max diff {e.max()} "
+              f"mean {e.mean():.4f}", flush=True)
+    require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
+            and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
+            "the card's bf16 SD inpainter is within twice the CPU's bf16 error")
+
+
+@contextlib.contextmanager
+def gates_open():
+    """Both filter decisions forced to True (the scorers still run), as the
+    factory benches do: random weights fail every semantic threshold."""
+    from anyedit_tpu_torch.runtime import executor as ex_mod
+    saved = ex_mod.pre_filter_decision, ex_mod.post_filter_decision
+    ex_mod.pre_filter_decision = ex_mod.post_filter_decision = lambda *a, **k: True
+    try:
+        yield
+    finally:
+        ex_mod.pre_filter_decision, ex_mod.post_filter_decision = saved
+
+
+def ground_as_real_weights(tb, device) -> set:
+    """Wrap `tb.ground` and its `.batch` as the JAX factory bench
+    (`tools/bench_factory.py`) does at production thresholds, where the
+    random detector rarely keeps a box: the real grounding runs, and its
+    answer is, on a source image, the detection or a synthetic box and mask
+    (the image's second quarter) where none is kept; on any other image
+    (the removal check, the post-filter's existence check), None, as real
+    weights would find the object gone. Returns the set to which the caller
+    adds the ids of its source images."""
+    import torch
+    from anyedit_tpu_torch.grounding.maskgen import MAX_BOXES, grounding_result
+
+    real = tb.ground
+    source_ids: set = set()
+
+    def fallback(h, w):
+        m = torch.full((MAX_BOXES, h, w), -1.0, device=device)
+        m[0, h // 4:h // 2, w // 4:w // 2] = 1.0
+        boxes = torch.zeros((MAX_BOXES, 4), device=device)
+        boxes[0] = torch.tensor([w / 4, h / 4, w / 2, h / 2])
+        scores = torch.zeros((MAX_BOXES,), device=device)
+        scores[0] = 0.9
+        valid = torch.zeros((MAX_BOXES,), dtype=torch.bool, device=device)
+        valid[0] = True
+        return grounding_result(m, boxes, scores, valid, (h, w), "merge", None)
+
+    def answer(image, g):
+        if id(image) not in source_ids:
+            return None
+        return fallback(*image.shape[:2]) if g is None or not bool(g.mask.any()) else g
+
+    def ground(image, phrase, mode="merge", count_k=None):
+        return answer(image, real(image, phrase, mode=mode, count_k=count_k))
+
+    def ground_batch(images, phrases, modes=None, count_ks=None):
+        return [answer(im, g) for im, g in
+                zip(images, real.batch(images, phrases, modes=modes, count_ks=count_ks))]
+    ground.batch = ground_batch
+    tb.ground = ground
+    return source_ids
+
+
+def chunk(dev, pzoo):
+    """CHUNK_TYPES records, each its own 480x640 array, through
+    `FactoryExecutor(grounding_batch=4)` on the production zoo with every
+    slot, both gates open and the grounder answering as real weights would
+    (`ground_as_real_weights`); then the same records per record; then the
+    BUCKET_TYPES records in one chunk. Returns {"launches": by path ("chunk",
+    "bucket"), "seconds": a record by mode, "peak": GiB by mode, "edit_dist":
+    the batched edits' largest mean uint8 distance from per record}."""
+    import io
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+
+    def make(types, tag):
+        return [InstructionRecord.from_json(dict(
+            RECORD, edit_type=et, edit=f"{RECORD['edit']} {tag}{i}",
+            image_file=f"{tag}{i}.jpg")) for i, et in enumerate(types)]
+    recs, bucket = make(CHUNK_TYPES, "chunk_"), make(BUCKET_TYPES, "bucket_")
+    rng = np.random.default_rng(10)
+    images = {r.key(): rng.integers(0, 256, GROUND_HW + (3,), np.uint8) for r in recs + bucket}
+    t0 = time.perf_counter()
+    tb = pzoo.toolbox(slots=("clip", "aesthetic", "vqa", "sd_inpaint"))
+    torch.cuda.synchronize()
+    print(f"production zoo (every slot, box_threshold {pzoo.cfg.box_threshold}) built on "
+          f"the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB resident", flush=True)
+    ground_as_real_weights(tb, dev).update(id(im) for im in images.values())
+    real = tb.ip2p
+    live, batched, single, calls = [], {}, {}, []
+
+    def ip2p(image, instruction, mask01, **kw):
+        out = real(image, instruction, mask01, **kw)
+        if mask01 is None:
+            live.append(instruction)
+            single[instruction] = out
+        return out
+
+    def ip2p_batch(images_, instructions, **kw):
+        outs = real.batch(images_, instructions, **kw)
+        calls.append(list(instructions))
+        batched.update(zip(instructions, outs))
+        return outs
+    ip2p.batch = ip2p_batch
+    tb.ip2p = ip2p
+
+    def go(label, records, **cfg):
+        live.clear()
+        calls.clear()
+        err = io.StringIO()
+        with tempfile.TemporaryDirectory() as root, gates_open(), \
+                contextlib.redirect_stderr(err):
+            ex = FactoryExecutor(tb, ExecutorConfig(output_root=root, save_images=False, **cfg))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_nomax.launches = 0
+            group_norm.launches = 0
+            t0 = time.perf_counter()
+            report = ex.run(records, lambda r: images[r.key()])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"flash_nomax": flash_nomax.launches,
+                        "group_norm": group_norm.launches}
+            lines = [json.loads(x) for x in (Path(root) / "ledger.jsonl").read_text()
+                     .splitlines()]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sys.stderr.write(err.getvalue())
+        require("fell back" not in err.getvalue(), f"{label}: no batch call fell back")
+        outcomes = {x["key"]: (x["status"], x["payload"].get("stage"),
+                               x["payload"].get("reason")) for x in lines}
+        print(f"{label}: {seconds:.3f} s for {len(records)} records "
+              f"({seconds / len(records):.3f} s a record), peak {peak:.2f} GiB allocated; "
+              f"outcomes {sorted(outcomes.values())}; launches {launches}; StageTimer "
+              f"{json.dumps(report['stages'])}", flush=True)
+        if cfg.get("grounding_batch"):
+            require({"ground_batch", "clip_batch", "edit_batch"} <= set(report["stages"]),
+                    f"{label} ran ground_batch, clip_batch and edit_batch: "
+                    f"{sorted(report['stages'])}")
+            require(live == [], f"{label}: no live unmasked IP2P call for a batched record: "
+                    f"{live}")
+        return outcomes, launches, seconds, peak
+
+    want = STEPS * K1_PER_UNET_CALL       # one batched UNet call a step
+    c_out, c_launches, c_s, c_peak = go("chunk of 4", recs, grounding_batch=4)
+    n_color = CHUNK_TYPES.count("color_alter")
+    require(calls == [[r.edit for r in recs if r.edit_type == "color_alter"]],
+            f"the {n_color} color_alter records' edits are one batched call: {calls}")
+    require(c_launches["flash_nomax"] == want and c_launches["group_norm"] > 0,
+            f"the chunk launched {c_launches}, want K1 {want} and K2 > 0")
+    p_out, p_launches, p_s, p_peak = go("per record", recs, grounding_batch=0)
+    require(p_out == c_out, f"chunk outcomes {c_out} equal per-record {p_out}")
+    require(p_launches["flash_nomax"] == n_color * want,
+            f"per record launched K1 {p_launches['flash_nomax']}, want {n_color * want}")
+    require(sorted(single) == sorted(batched), f"per record edited {sorted(single)}")
+    dist = {k: np.abs(batched[k].astype(np.int32) - single[k].astype(np.int32)) for k in single}
+    for k, d in dist.items():
+        print(f"batched edit {k!r} vs its per-record edit: uint8 max {d.max()} mean "
+              f"{d.mean():.3f} (bound: mean {CHUNK_EDIT_MEAN_BOUND})", flush=True)
+        require(d.mean() <= CHUNK_EDIT_MEAN_BOUND,
+                f"the batched edit of {k!r} within a mean of {CHUNK_EDIT_MEAN_BOUND} levels "
+                "of its per-record edit")
+    b_out, b_launches, b_s, b_peak = go("bucket of 4", bucket, grounding_batch=4)
+    require(calls == [[r.edit for r in bucket]],
+            f"the bucket's {len(bucket)} edits are one batched call: {calls}")
+    require(b_launches["flash_nomax"] == want and b_launches["group_norm"] > 0,
+            f"the bucket launched {b_launches}, want K1 {want} and K2 > 0")
+    require(all(o[0] == "success" for o in b_out.values()), f"the bucket's outcomes {b_out}")
+    return {"launches": {"chunk": c_launches, "bucket": b_launches},
+            "seconds": {"chunk": c_s / len(recs), "per_record": p_s / len(recs),
+                        "bucket": b_s / len(bucket)},
+            "peak": {"chunk": c_peak, "per_record": p_peak, "bucket": b_peak},
+            "edit_dist": max(float(d.mean()) for d in dist.values())}
+
+
+def slice3_records(dev, zoo):
+    """One background_change and one style_change record through
+    `get_pipeline` on the full-width zoo: K1 500 each (50 steps of a UNet
+    with 10 K1 sites), seconds printed; then one more SD-inpainter call,
+    warm. Returns the seconds by record, the SD inpainter's seconds (in the
+    record, and warm) and the background_change record's launches."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+
+    tb = zoo.toolbox(slots=("sd_inpaint",))
+    real_sd, spent = tb.sd_inpaint, {}
+
+    def sd_inpaint(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_sd(*a, **k)
+        torch.cuda.synchronize()
+        spent["sd_inpaint"] = time.perf_counter() - t0
+        return out
+    tb.sd_inpaint = sd_inpaint
+    img = np.random.default_rng(11).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    seconds, launches = {}, {}
+    for et in ("background_change", "style_change"):
+        rec = InstructionRecord.from_json(dict(RECORD, edit_type=et, output="a beach at dusk",
+                                               edit="turn it into a watercolor painting"))
+        torch.cuda.synchronize()
+        flash_nomax.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        out = get_pipeline(et)(tb, rec, img, np.random.default_rng(0))
+        torch.cuda.synchronize()
+        seconds[et] = time.perf_counter() - t0
+        launches[et] = {"flash_nomax": flash_nomax.launches,
+                        "group_norm": group_norm.launches}
+        require(out.success and out.edited.shape == img.shape and out.edited.dtype == np.uint8,
+                f"the {et} record succeeded with a uint8 image ({out.reason})")
+        require(flash_nomax.launches == 50 * K1_PER_UNET_CALL,
+                f"{et} launched K1 {flash_nomax.launches} times, want {50 * K1_PER_UNET_CALL}")
+        print(f"{et} record {GROUND_HW[0]}x{GROUND_HW[1]}: {seconds[et]:.3f} s"
+              + (f" (SD inpainter, 50 steps: {spent['sd_inpaint']:.3f} s)"
+                 if et == "background_change" else " (IP2P, 50 steps)")
+              + f"; launches {launches[et]}", flush=True)
+    first = spent["sd_inpaint"]
+    mask = np.zeros(GROUND_HW, np.float32)
+    mask[120:360, 160:480] = 1.0
+    sd_inpaint(img, mask, "a photo of a red car")
+    print(f"SD inpainter, 50 steps on {GROUND_HW[0]}x{GROUND_HW[1]}: {first:.3f} s in the "
+          f"record (its first call), {spent['sd_inpaint']:.3f} s warm", flush=True)
+    return seconds, (first, spent["sd_inpaint"]), launches["background_change"]
+
+
 def main() -> int:
     import torch
 
@@ -960,6 +1356,7 @@ def main() -> int:
 
     with phase("kernels"):
         k1, k2, k3, k4 = check_kernels(dev)
+        slice_rows = check_chunk_kernels(dev)
 
     with phase("int8"):
         check_int8(dev)
@@ -970,6 +1367,12 @@ def main() -> int:
 
     with phase("scorer reference"):
         check_scorer_reference(dev)
+
+    with phase("inpaint reference"):
+        check_inpaint_reference(dev)
+
+    with phase("lama"):
+        lama_err, lama_ms = check_lama(dev)
 
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
     # box_threshold 0.0: the random detector keeps boxes for the grounding
@@ -1019,6 +1422,24 @@ def main() -> int:
         print(f"{card_line}: {e_timing['record_s']:.3f} s per gated executor record",
               flush=True)
 
+    with phase("slice 3 records"):
+        s3_seconds, sd_s, sd_launches = slice3_records(dev, zoo)
+        print(f"{card_line}: background_change {s3_seconds['background_change']:.3f} s "
+              f"(SD inpainter {sd_s[0]:.3f} s; warm {sd_s[1]:.3f} s), style_change "
+              f"{s3_seconds['style_change']:.3f} s", flush=True)
+    del zoo
+    torch.cuda.empty_cache()
+
+    with phase("chunk"):
+        # the production config: box_threshold 0.25
+        ch = chunk(dev, ModelZoo(ZooConfig(), dev, seed=0))
+        sec, peak = ch["seconds"], ch["peak"]
+        print(f"{card_line}: chunk {sec['chunk']:.3f} s a record (peak "
+              f"{peak['chunk']:.2f} GiB), per record {sec['per_record']:.3f} s "
+              f"(peak {peak['per_record']:.2f} GiB), bucket of 4 edits {sec['bucket']:.3f} s "
+              f"a record (peak {peak['bucket']:.2f} GiB); batched edits within a mean of "
+              f"{ch['edit_dist']:.3f} levels of their per-record edits", flush=True)
+
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
@@ -1047,6 +1468,16 @@ def main() -> int:
         row["launches_ground"] = g_launches[row["name"]]
         row["launches_color_alter"] = r_launches[row["name"]]
         row["launches_executor_record"] = e_launches[row["name"]]
+        row["launches_chunk"] = ch["launches"]["chunk"][row["name"]]
+        row["launches_bucket"] = ch["launches"]["bucket"][row["name"]]
+    # this slice's shapes, each its own row, with the kernel's launches in
+    # the run of the path that gives it that shape
+    path_launches = {"sd": sd_launches, **ch["launches"]}
+    sources = {k["name"]: (k["source"], k["replaces"]) for k in kernels}
+    for name, shape, r, path in slice_rows:
+        row = entry(name, *sources[name], path_launches[path][name], [(shape, r)])
+        row["path"] = PATHS[path]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

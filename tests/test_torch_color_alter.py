@@ -178,8 +178,11 @@ def test_color_alter_object_not_found(zoo_pair):
 def test_registry_names_what_is_ported():
     assert get_pipeline("color_alter") is global_.color_alter
     assert get_pipeline("tone_transfer") is global_.tone_transfer
-    with pytest.raises(KeyError, match="ported: \\['color_alter', 'tone_transfer'\\]"):
-        get_pipeline("remove")
+    with pytest.raises(KeyError, match="ported: \\['add', 'appearance_alter', "
+                                       "'background_change', 'color_alter', 'counting', "
+                                       "'material_alter', 'remove', 'replace', "
+                                       "'style_change', 'tone_transfer'\\]"):
+        get_pipeline("movement")
 
 
 def test_grounder_on_the_card_raises_without_cuda(monkeypatch):

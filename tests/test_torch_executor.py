@@ -275,12 +275,6 @@ def test_png_round_trips(tmp_path, shape):
         encode_png(a.astype(np.float32))
 
 
-def test_chunk_mode_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 2c"):
-        executor.FactoryExecutor(stub_toolbox(PORT),
-                                 executor.ExecutorConfig(grounding_batch=4))
-
-
 def test_profile_trace_written(tmp_path):
     """`profile_trace_dir` writes a torch.profiler trace of the run."""
     _, report = _run(PORT, tmp_path, records=_records(PORT, 2),

@@ -7,6 +7,7 @@ JAX's own draws handed to the port. Tolerances: final latents of
 pixel.
 """
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -44,23 +45,38 @@ def params():
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the executor, the filters,
-    T5, BLIP-2, the ledger and rng among them) loads neither jax, flax nor
-    anyedit_tpu."""
+    T5, BLIP-2, LaMa, the samplers, the local edits, the ledger and rng
+    among them), `chip_smoke.py` and the port's benches loads neither jax,
+    flax nor anyedit_tpu, and no import statement in them names one."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import anyedit_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import importlib.util\n"
+        "for f in ('chip_smoke.py', 'tools/bench_torch_ip2p.py', 'tools/bench_torch_factory.py'):\n"
+        "    spec = importlib.util.spec_from_file_location(f.replace('/', '_')[:-3], f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'anyedit_tpu'))\n"
         "assert not bad, bad\n"
         "for m in ('runtime.zoo', 'runtime.executor', 'filters.pre_filter',\n"
         "          'filters.post_filter', 'filters.scorers', 'models.t5',\n"
-        "          'models.blip2', 'core.ledger', 'core.rng', 'core.png'):\n"
+        "          'models.blip2', 'core.ledger', 'core.rng', 'core.png',\n"
+        "          'models.lama', 'diffusion.sampling', 'edits.local',\n"
+        "          'edits.implicit'):\n"
         "    assert 'anyedit_tpu_torch.' + m in sys.modules, m\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # the imports inside functions too, for the scripts that drive the card
+    for f in [REPO / "chip_smoke.py", *REPO.glob("tools/bench_torch_*.py"),
+              *REPO.glob("anyedit_tpu_torch/**/*.py")]:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) else []
+            assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                                  "anyedit_tpu")], (f, names)
 
 
 @pytest.mark.parametrize("masked", [False, True])
