@@ -1,13 +1,15 @@
-"""Global edits: color_alter / tone_transfer / appearance_alter via the
-IP2P editor (counterpart of `anyedit_tpu/edits/global_.py`).
+"""Global edits: color_alter / tone_transfer via the IP2P editor and
+appearance_alter via SD3-UltraEdit (counterpart of
+`anyedit_tpu/edits/global_.py`).
 
 color_alter grounds the edited object, runs the 100-step IP2P edit (s_txt
 8.0, s_img 0.9) on the whole image, and pastes the edited region back onto
 the original with a feathered seam; tone_transfer keeps the whole edited
 frame. appearance_alter (also material_alter) grounds the object, takes
-faces out of its mask, and makes a masked IP2P edit at 50 steps, 8.0 / 1.5:
-the JAX pipeline's route when the toolbox has no UltraEdit slot, as the
-port's has not yet.
+faces out of its mask, and makes a masked edit at 50 steps, 8.0 / 1.5:
+through `tb.extra["ultraedit"]` (the zoo's `install(tb, "ultraedit")`, the
+production route), or through the masked IP2P editor when the toolbox has
+no UltraEdit slot.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def tone_transfer(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
 def appearance_alter(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
                      rng: np.random.Generator) -> EditOutcome:
     """The grounded mask minus faces (attribute_pipeline_tool.py:104-130),
-    edited by the masked IP2P editor."""
+    edited by SD3-UltraEdit (attribute_pipeline_tool.py:85-155), or by the
+    masked IP2P editor where the toolbox has no UltraEdit slot."""
     g = tb.ground(image, rec.edited_object, mode="merge")
     if g is None or not bool(g.mask.any()):
         return EditOutcome(False, reason="object not found")
@@ -67,7 +70,8 @@ def appearance_alter(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
     gf = tb.ground(image, "face", mode="merge")
     if gf is not None and bool(gf.mask.any()):
         mask = mask & ~to_numpy(gf.mask)
-    edited = np.asarray(tb.ip2p(image, rec.edit, mask.astype(np.float32),
-                                steps=APPEARANCE_STEPS, s_txt=APPEARANCE_S_TXT,
-                                s_img=APPEARANCE_S_IMG))
+    editor = tb.extra.get("ultraedit") or tb.ip2p
+    edited = np.asarray(editor(image, rec.edit, mask.astype(np.float32),
+                               steps=APPEARANCE_STEPS, s_txt=APPEARANCE_S_TXT,
+                               s_img=APPEARANCE_S_IMG))
     return EditOutcome(True, edited=edited, mask=mask)

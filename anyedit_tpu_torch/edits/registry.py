@@ -3,7 +3,7 @@ over the edit types ported so far."""
 
 from __future__ import annotations
 
-from anyedit_tpu_torch.edits import global_, implicit, local
+from anyedit_tpu_torch.edits import geometry, global_, implicit, local, outpainting
 from anyedit_tpu_torch.edits.types import Pipeline
 
 EDIT_PIPELINES: dict[str, Pipeline] = {
@@ -17,6 +17,10 @@ EDIT_PIPELINES: dict[str, Pipeline] = {
     "appearance_alter": global_.appearance_alter,
     "material_alter": global_.appearance_alter,
     "style_change": implicit.style_change,
+    "resize": geometry.resize_movement,
+    "movement": geometry.resize_movement,
+    "relation": geometry.relation_change,
+    "outpainting": outpainting.outpainting,
 }
 
 

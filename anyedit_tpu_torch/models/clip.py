@@ -32,9 +32,17 @@ class CLIPTextConfig:
     dtype: Any = torch.bfloat16
     # "quick_gelu" for OpenAI CLIP (the SD1.x text encoder), "gelu" for OpenCLIP
     activation: str = "quick_gelu"
+    # > 0: the checkpoint is a CLIPTextModelWithProjection, and `pooled` gets
+    # a bias-free fp32 `text_projection` to this width (SDXL's second tower,
+    # both SD3 towers)
+    text_proj: int = 0
 
 
 CLIP_L_TEXT = CLIPTextConfig()                                     # SD1.5 / ViT-L
+# OpenCLIP bigG: SDXL's second tower and SD3's CLIP-G (exact GELU, projected
+# pooled output)
+CLIP_BIGG_TEXT = CLIPTextConfig(hidden=1280, layers=32, heads=20, activation="gelu",
+                                text_proj=1280)
 TINY_TEXT = CLIPTextConfig(vocab_size=256, hidden=32, layers=2, heads=2, max_len=16)
 
 
@@ -161,15 +169,20 @@ class _TextModel(nn.Module):
 
 
 class CLIPTextEncoder(nn.Module):
-    """ids (B, L) -> (last_hidden (B, L, H), pooled (B, H), penult
-    (B, L, H)), all fp32. `pooled` is the hidden state at the first
-    argmax id (the EOT token, CLIP convention); `penult` is the input of the
-    last layer, without the final LayerNorm."""
+    """ids (B, L) -> (last_hidden (B, L, H), pooled (B, H or text_proj),
+    penult (B, L, H)), all fp32. `pooled` is the hidden state at the first
+    argmax id (the EOT token, CLIP convention), through `text_projection`
+    when `cfg.text_proj` is set (HF CLIPTextModelWithProjection's
+    `text_embeds`); `penult` is the input of the last layer, without the
+    final LayerNorm (the clip_skip hidden states SDXL and SD3 condition on)."""
 
     def __init__(self, cfg: CLIPTextConfig = CLIP_L_TEXT, device=None):
         super().__init__()
         self.cfg = cfg
         self.text_model = _TextModel(cfg, device)
+        if cfg.text_proj:
+            self.text_projection = nn.Linear(cfg.hidden, cfg.text_proj, bias=False,
+                                             device=device)
 
     def forward(self, ids: torch.Tensor):
         c = self.cfg
@@ -187,6 +200,8 @@ class CLIPTextEncoder(nn.Module):
         x = tm.final_layer_norm(x)
         eos = ids.argmax(dim=-1)
         pooled = x[torch.arange(b, device=ids.device), eos].float()
+        if c.text_proj:
+            pooled = self.text_projection(pooled)
         return x.float(), pooled, penult.float()
 
 

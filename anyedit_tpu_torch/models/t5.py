@@ -38,6 +38,7 @@ class T5Config:
     dtype: Any = torch.bfloat16
 
 
+T5_XXL = T5Config()        # SD3's and Flux's text encoder (the encoder only)
 FLAN_T5_XL = T5Config(dim=2048, heads=32, kv_dim=64, ffn_dim=5120,
                       enc_layers=24, dec_layers=24)
 TINY_T5 = T5Config(vocab_size=64, dim=32, kv_dim=8, heads=4, ffn_dim=64,

@@ -33,6 +33,11 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+# The SD3 VAE as the JAX zoo defines it (`runtime/zoo.py:72`): the SD1.5
+# layout with 16 latent channels and SD3's scaling factor. Like the JAX
+# package it keeps quant_conv / post_quant_conv and scales without a shift;
+# diffusers' SD3 VAE has neither conv and shifts by 0.0609 (ROADMAP queue 3).
+SD3_VAE = dataclasses.replace(SD_VAE, latent_channels=16, scaling_factor=1.5305)
 TINY_VAE = VAEConfig(block_channels=(16, 32), layers_per_block=1, num_groups=8,
                      scaling_factor=0.5)
 

@@ -110,6 +110,9 @@ _FIRST_GROUND: dict[str, tuple[str, str]] = {
     "color_alter": ("edited_object", "merge"),
     "appearance_alter": ("edited_object", "merge"),
     "material_alter": ("edited_object", "merge"),
+    "resize": ("edited_object", "max"), "movement": ("edited_object", "max"),
+    "relation": ("edited_object", "max"),
+    "outpainting": ("edited_object", "merge"),
 }
 
 # edit types whose pipeline makes exactly one unmasked full-frame ip2p call,
@@ -130,7 +133,7 @@ def _first_ground_spec(rec) -> Optional[tuple[str, str, Optional[int]]]:
     spec = _FIRST_GROUND.get(rec.edit_type)
     if spec is None:
         return None
-    phrase = getattr(rec, spec[0])
+    phrase = getattr(rec, spec[0]) or (rec.input if rec.edit_type == "outpainting" else None)
     if rec.edit_type == "background_change" and not phrase:
         phrase = "foreground object"
     if not phrase:

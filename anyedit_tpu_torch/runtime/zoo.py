@@ -1,7 +1,7 @@
 """The model zoo's grounding, editing, inpainting and scorer slots
 (counterpart of the `grounder()`, `ip2p()`, `inpainter()`, `sd_inpainter()`,
-`clip_towers()`, `aesthetic_fn()`, `vqa_fn()` and `toolbox()` of
-`anyedit_tpu/runtime/zoo.py`).
+`ultraedit_fn()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()` and
+`toolbox()` of `anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
 count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
@@ -34,13 +34,20 @@ padded to a multiple of 8, fp32, cuDNN's TF32 off for the call);
 prompt, negative)` (the mask at latent size above 0.25, 50 steps, scale
 7.5; W8A8 with `quant_diffusion`).
 
+`ultraedit_fn()` returns SD3-UltraEdit's `edit(image_u8, instruction,
+mask01, steps, s_txt, s_img, seed)`: lanczos resize -> SD3 VAE encode ->
+`sd3_cond()` for the instruction and for "" -> the 3-way-CFG flow edit on
+the MMDiT (the mask at latent size above 0.25) -> SD3 VAE decode -> lanczos
+resize back; the MMDiT in W8A8 with `quant_diffusion`.
+
 The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
 clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
 to the tower's size, ImageNet mean and std, as the JAX zoo), and
 `clip_image.batch(images)` one tower forward for a list; `aesthetic_fn()`
 the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
 EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
-"aesthetic", "vqa") or the SD inpainter ("sd_inpaint") to a Toolbox, and
+"aesthetic", "vqa"), the SD inpainter ("sd_inpaint") or UltraEdit
+("ultraedit", as `tb.extra["ultraedit"]`) to a Toolbox, and
 `toolbox(slots=...)` installs them beside `ground`, `inpaint` and `ip2p`.
 """
 
@@ -52,9 +59,10 @@ from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from anyedit_tpu_torch.core.config import CanvasConfig
-from anyedit_tpu_torch.diffusion import ip2p_edit, sample_inpaint
+from anyedit_tpu_torch.diffusion import ip2p_edit, sample_inpaint, ultraedit_edit
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
@@ -62,21 +70,23 @@ from anyedit_tpu_torch.grounding.text import SimpleVocabTokenizer, phrase_token_
 from anyedit_tpu_torch.models.bert import TINY_BERT
 from anyedit_tpu_torch.models.blip2 import BLIP2_QFORMER, TINY_QFORMER, Blip2VQA, QFormerConfig, yes_no
 from anyedit_tpu_torch.models.clip import (
-    CLIP_L_TEXT, CLIP_L_VISION, EVA_VIT_G, TINY_TEXT, TINY_VISION, CLIPTextConfig,
+    CLIP_BIGG_TEXT, CLIP_L_TEXT, CLIP_L_VISION, EVA_VIT_G, TINY_TEXT, TINY_VISION,
+    CLIPTextConfig,
     CLIPTextEncoder, CLIPTextModel, CLIPVisionConfig, CLIPVisionEncoder,
 )
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
 from anyedit_tpu_torch.models.lama import LAMA, TINY_LAMA, LamaConfig, LamaGenerator, pad_to_modulo
+from anyedit_tpu_torch.models.mmdit import SD3_ULTRAEDIT, TINY_MMDIT, MMDiT, MMDiTConfig
 from anyedit_tpu_torch.models.sam import (
     SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
 )
 from anyedit_tpu_torch.models.swin import TINY_SWIN
-from anyedit_tpu_torch.models.t5 import TINY_T5
+from anyedit_tpu_torch.models.t5 import T5_XXL, TINY_T5, T5Config, T5Encoder
 from anyedit_tpu_torch.models.unet_sd import (
     SD15_INPAINT_UNET, SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
-from anyedit_tpu_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
+from anyedit_tpu_torch.models.vae import SD3_VAE, SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
@@ -89,9 +99,9 @@ from anyedit_tpu_torch.weights.init import seeded_init_
 @dataclasses.dataclass
 class ZooConfig:
     """The fields of the JAX `ZooConfig` that the grounding, editing,
-    inpainting and scorer slots read. `t5_hash_vocab` stands for the JAX config's
-    `flux_text.vocab_size`: with no SentencePiece model the VQA question's
-    hash ids are taken modulo it before the modulo of the LM's vocabulary."""
+    inpainting and scorer slots read. With no SentencePiece model, T5 ids
+    (UltraEdit's T5-XXL, the VQA question) are the hash ids modulo
+    `flux_text.vocab_size`, as in the JAX zoo."""
 
     canvas: CanvasConfig = CanvasConfig()
     gdino: GDINOConfig = GDINO_SWINB
@@ -101,15 +111,19 @@ class ZooConfig:
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     inpaint_unet: UNetConfig = SD15_INPAINT_UNET
     vae: VAEConfig = SD_VAE
+    sd3_vae: VAEConfig = SD3_VAE               # UltraEdit's latent codec
     text: CLIPTextConfig = CLIP_L_TEXT
+    text_g: CLIPTextConfig = CLIP_BIGG_TEXT    # SD3's second CLIP tower
     vision: CLIPVisionConfig = CLIP_L_VISION   # clip_image tower
+    flux_text: T5Config = T5_XXL               # SD3's T5 text encoder
+    mmdit: MMDiTConfig = SD3_ULTRAEDIT
     eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
     qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
-    t5_hash_vocab: int = 32128                 # T5-XXL's vocabulary
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
-    # pure-sampling UNet slots: of those the port has the SD inpainter.
+    # pure-sampling slots: of those the port has the SD inpainter and
+    # UltraEdit's MMDiT.
     quant_ip2p: bool = False
     quant_diffusion: bool = False
     # records per batch-3n UNet call of `ip2p().batch` (the chunk-mode
@@ -126,6 +140,7 @@ def tiny_zoo_config() -> ZooConfig:
     index the table (at TINY_BERT's 128 they fall outside it, which
     `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
+    vae = dataclasses.replace(TINY_VAE, **f32)
     return ZooConfig(
         canvas=CanvasConfig(edit_size=64, grounding_size=64, sam_size=64,
                             latent_down=2),
@@ -136,13 +151,19 @@ def tiny_zoo_config() -> ZooConfig:
         lama=TINY_LAMA,
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
         inpaint_unet=dataclasses.replace(TINY_UNET, in_channels=9, **f32),
-        vae=dataclasses.replace(TINY_VAE, **f32),
+        vae=vae,
+        sd3_vae=vae,
         text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32),
+        # CLIP-L (32) + CLIP-G (16) = 48: the pooled width; the context is cut to 32
+        text_g=dataclasses.replace(TINY_TEXT, hidden=16, heads=2, vocab_size=30522,
+                                   max_len=77, **f32),
         vision=dataclasses.replace(TINY_VISION, **f32),
+        flux_text=dataclasses.replace(TINY_T5, vocab_size=30522, **f32),
+        mmdit=dataclasses.replace(TINY_MMDIT, in_channels=9, out_channels=4, context_dim=32,
+                                  pooled_dim=48, max_hw=16, **f32),
         eva=dataclasses.replace(TINY_VISION, **f32),
         qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
                                     **f32),
-        t5_hash_vocab=30522,
         box_threshold=0.0)
 
 
@@ -161,7 +182,8 @@ class ModelZoo:
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
     "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "vae", "clip_text", "clip_vision",
-    "clip_text_proj", "aesthetic", "eva_vit" and "blip2"; a missing slot
+    "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit", "sd3_vae",
+    "clip_text_sd3", "clip_text_g" and "t5"; a missing slot
     gets a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
 
@@ -203,8 +225,9 @@ class ModelZoo:
         return ids_a
 
     def _t5_ids(self, text: str, max_len: int) -> np.ndarray:
-        """T5 ids: the JAX zoo's fallback with no SentencePiece model."""
-        return self._ids(text, max_len, self.cfg.t5_hash_vocab)
+        """T5 ids: the JAX zoo's fallback with no SentencePiece model, the
+        hash ids modulo `flux_text.vocab_size`."""
+        return self._ids(text, max_len, self.cfg.flux_text.vocab_size)
 
     def _clip_ids(self, text: str, max_len: int) -> np.ndarray:
         """CLIP ids, EOT-padded (HF CLIPTokenizer convention: pooled =
@@ -236,11 +259,25 @@ class ModelZoo:
         raw = self._text_raw("clip_text", self.cfg.text)
         return lambda text: raw(text)[0]
 
-    def _vae(self) -> AutoencoderKL:
-        vcfg = self.cfg.vae
-        return self._get("vae", lambda: self._load(
-            AutoencoderKL(vcfg, device=self.device), "vae",
+    def _t5(self):
+        """text -> T5 hidden states (1, 77, dim) fp32 (SD3's long-text
+        context): 77 hash ids and no mask, as the JAX zoo's `_t5`."""
+        t5 = self._get("t5", lambda: self._load(
+            T5Encoder(self.cfg.flux_text, device=self.device), "t5", bridge.t5_state_dict))
+        return lambda text: t5(torch.from_numpy(self._t5_ids(text, 77)).to(self.device))
+
+    def _vae_cfg(self, slot: str) -> VAEConfig:
+        return {"vae": self.cfg.vae, "sd3_vae": self.cfg.sd3_vae}[slot]
+
+    def _vae_named(self, slot: str) -> AutoencoderKL:
+        """The latent codec of a diffusion slot: "vae" (SD1.5) or "sd3_vae"."""
+        vcfg = self._vae_cfg(slot)
+        return self._get(slot, lambda: self._load(
+            AutoencoderKL(vcfg, device=self.device), slot,
             lambda t: bridge.vae_state_dict(t, len(vcfg.block_channels))))
+
+    def _vae(self) -> AutoencoderKL:
+        return self._vae_named("vae")
 
     def _gdino(self) -> GroundingDINO:
         return self._get("gdino", lambda: self._load(
@@ -251,29 +288,34 @@ class ModelZoo:
         return self._get("sam", lambda: self._load(
             SAM(self.cfg.sam, device=self.device), "sam", bridge.sam_state_dict))
 
-    def _quantize_unet(self, ucfg: UNetConfig, slot: str) -> UNet2DCondition:
-        """The W8A8 UNet from the slot's float parameters: bridged from
-        `params`, or the seeded init drawn on the device in fp32 (the float
-        values the JAX package quantizes). Quantized once, here."""
+    def _backbone(self, make: Callable, cfg, slot: str, to_state_dict, quant: bool):
+        """The denoiser `make(cfg, device=...)` of a diffusion slot, bridged
+        from `params` or seeded. With `quant`, the W8A8 module from the
+        slot's float parameters: bridged from `params`, or the seeded init
+        drawn on the device in fp32 (the float values the JAX package
+        quantizes), quantized once, here."""
+        if not quant:
+            return self._load(make(cfg, device=self.device), slot, to_state_dict)
         if slot in self.params:
-            float_sd = bridge.unet_state_dict(self.params[slot],
-                                              len(ucfg.block_channels))
+            float_sd = to_state_dict(self.params[slot])
         else:
-            fcfg = dataclasses.replace(ucfg, dtype=torch.float32)
-            float_sd = seeded_init_(UNet2DCondition(fcfg, device=self.device),
-                                    self.seed).state_dict()
-        unet = UNet2DCondition(dataclasses.replace(ucfg, quant=True),
-                               device=self.device)
-        unet.load_state_dict(quantize_state_dict(unet, float_sd), strict=True)
-        return unet.eval().requires_grad_(False)
+            fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+            float_sd = seeded_init_(make(fcfg, device=self.device), self.seed).state_dict()
+        module = make(dataclasses.replace(cfg, quant=True), device=self.device)
+        module.load_state_dict(quantize_state_dict(module, float_sd), strict=True)
+        return module.eval().requires_grad_(False)
 
     def _unet(self, slot: str, ucfg: UNetConfig, quant: bool) -> UNet2DCondition:
-        """The UNet of a diffusion slot: W8A8 from its float parameters with
-        `quant`, else bridged from `params` or seeded."""
-        if quant:
-            return self._quantize_unet(ucfg, slot)
-        return self._load(UNet2DCondition(ucfg, device=self.device), slot,
-                          lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels)))
+        return self._backbone(UNet2DCondition, ucfg, slot,
+                              lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels)),
+                              quant)
+
+    def _mmdit(self) -> MMDiT:
+        """UltraEdit's MMDiT (slot "mmdit_ultraedit"); W8A8 with `quant_diffusion`."""
+        c = self.cfg.mmdit
+        return self._get("mmdit", lambda: self._backbone(
+            MMDiT, c, "mmdit_ultraedit", lambda t: bridge.mmdit_state_dict(t, c.patch),
+            self.cfg.quant_diffusion))
 
     def _ip2p_core(self):
         """(unet, noise_schedule)."""
@@ -296,20 +338,22 @@ class ModelZoo:
             LamaGenerator(lcfg, device=self.device), "lama",
             lambda t: bridge.lama_state_dict(t, lcfg.ratio_g)))
 
-    # pixel <-> latent helpers (every diffusion slot)
-    def _to_latents(self, images) -> torch.Tensor:
+    # pixel <-> latent helpers (every diffusion slot; `vae` names its codec)
+    def _to_latents(self, images, vae: str = "vae") -> torch.Tensor:
         """(B, h, w, C) scaled latents of a list of (H, W, 3) uint8 images:
         lanczos resize to the canvas, [-1, 1], one VAE encode in bf16."""
         size = self.cfg.canvas.edit_size
         px = torch.stack([normalize_to_unit(resize_image(
             torch.as_tensor(im, device=self.device).float(), size, size, "lanczos"))
             for im in images])
-        return self._vae().encode(px.to(torch.bfloat16))[0] * self.cfg.vae.scaling_factor
+        return self._vae_named(vae).encode(px.to(torch.bfloat16))[0] \
+            * self._vae_cfg(vae).scaling_factor
 
-    def _from_latents(self, lat: torch.Tensor, hws) -> list[np.ndarray]:
+    def _from_latents(self, lat: torch.Tensor, hws, vae: str = "vae") -> list[np.ndarray]:
         """One VAE decode of (B, h, w, C) latents -> B uint8 images, each
         lanczos-resized to its (H, W) of `hws`."""
-        imgs = self._vae().decode((lat / self.cfg.vae.scaling_factor).to(torch.bfloat16))
+        scaling = self._vae_cfg(vae).scaling_factor
+        imgs = self._vae_named(vae).decode((lat / scaling).to(torch.bfloat16))
         return [to_u8(resize_image(denormalize_to_u8(im).float(), h, w, "lanczos")).cpu().numpy()
                 for im, (h, w) in zip(imgs, hws)]
 
@@ -485,7 +529,7 @@ class ModelZoo:
         """(image_u8, question) -> bool: BLIP-2's yes/no answer
         (filter_tool/utils.py:55-94). `ask.logits(image_u8, question)` gives
         the decoder's first-step logits (1, vocab) it compares. The question
-        is 32 hash ids, modulo `t5_hash_vocab` then the LM's vocabulary,
+        is 32 hash ids, modulo `flux_text.vocab_size` then the LM's vocabulary,
         masked where 0; 'yes' and 'no' are the first id after CLS of the
         words' own ids, as in the JAX zoo with no SentencePiece model."""
         def build():
@@ -518,9 +562,11 @@ class ModelZoo:
             tb.extra["aesthetic"] = self.aesthetic_fn()
         elif slot == "vqa":
             tb.vqa_yes_no = self.vqa_fn()
+        elif slot == "ultraedit":
+            tb.extra["ultraedit"] = self.ultraedit_fn()
         else:
             raise KeyError(f"unknown toolbox slot {slot!r} "
-                           "(ported: 'sd_inpaint', 'clip', 'aesthetic', 'vqa')")
+                           "(ported: 'sd_inpaint', 'clip', 'aesthetic', 'vqa', 'ultraedit')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
         """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
@@ -664,6 +710,71 @@ class ModelZoo:
                 return self._from_latents(out, [image_u8.shape[:2]])[0]
             return inpaint
         return self._get("sd_inpaint", build)
+
+    def sd3_cond(self):
+        """text -> (context (1, 77 + 77, mmdit.context_dim) bf16, pooled
+        (1, mmdit.pooled_dim) fp32): the SD3 conditioning of the JAX zoo's
+        `ultraedit_fn` (diffusers pipeline_stable_diffusion_3 layout). The
+        context is the penultimate hidden states (no final LN) of CLIP-L with
+        projection and CLIP-bigG, concatenated, zero-padded or cut to the T5
+        width, then T5's hidden states in the sequence; pooled is the two
+        towers' projected pooled outputs, zero-padded or cut to `pooled_dim`."""
+        def build():
+            c = self.cfg
+            d, pd = c.mmdit.context_dim, c.mmdit.pooled_dim
+            t5 = self._t5()
+            # SD3 ships both CLIP towers as CLIPTextModelWithProjection, so its
+            # L tower is a slot of its own beside SD1.5's projection-free one
+            clip_l = self._text_raw("clip_text_sd3",
+                                    dataclasses.replace(c.text, text_proj=c.text.hidden))
+            clip_g = self._text_raw("clip_text_g", c.text_g)
+
+            def cond(text: str):
+                _, pl, hl = clip_l(text)
+                _, pg, hg = clip_g(text)
+                clip_ctx = torch.cat([hl, hg], dim=-1)
+                clip_ctx = F.pad(clip_ctx, (0, max(0, d - clip_ctx.shape[-1])))[..., :d]
+                pooled = torch.cat([pl, pg], dim=-1)
+                pooled = F.pad(pooled, (0, max(0, pd - pooled.shape[-1])))[:, :pd]
+                return torch.cat([clip_ctx, t5(text)], dim=1).to(torch.bfloat16), pooled
+            return cond
+        return self._get("sd3_cond", build)
+
+    def ultraedit_fn(self):
+        """`edit(image_u8, instruction, mask01=None, steps=50, s_txt=8.0,
+        s_img=1.5, seed=0, init_latents=None, renoise=None) -> image_u8`:
+        SD3-UltraEdit's masked 3-way-CFG flow edit
+        (attribute_pipeline_tool.py:85-155). The start latents and, for a
+        masked edit, the re-noise noise are drawn from
+        `torch.Generator(seed)` (in that order) unless given (NHWC,
+        (1, size/down, size/down, sd3_vae.latent_channels))."""
+        def build():
+            mmdit = self._mmdit()
+            self._vae_named("sd3_vae")
+            cond = self.sd3_cond()
+            dev = self.device
+
+            @torch.inference_mode()
+            def edit(image_u8, instruction: str, mask01=None, steps: int = 50,
+                     s_txt: float = 8.0, s_img: float = 1.5, seed: int = 0,
+                     init_latents: Optional[torch.Tensor] = None,
+                     renoise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([image_u8], "sd3_vae")
+                m = None if mask01 is None else self._latent_mask(mask01, 0.25)[None]
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                if init_latents is None:
+                    init_latents = torch.randn(lat.shape, generator=gen, device=dev)
+                if renoise is None and m is not None:
+                    renoise = torch.randn(lat.shape, generator=gen, device=dev)
+                cc, pc = cond(instruction)
+                cu, pu = cond("")
+                out = ultraedit_edit(mmdit, lat, cc, pc, cu, pu, num_steps=steps,
+                                     guidance_scale=s_txt, image_guidance_scale=s_img,
+                                     mask=m, init_latents=init_latents.to(dev),
+                                     renoise=None if renoise is None else renoise.to(dev))
+                return self._from_latents(out, [image_u8.shape[:2]], "sd3_vae")[0]
+            return edit
+        return self._get("ultraedit", build)
 
 
 @contextlib.contextmanager

@@ -67,6 +67,16 @@ _FORWARD: dict[str, Callable[[np.ndarray], np.ndarray]] = {
 }
 
 
+def _inverse(tf) -> Callable[[np.ndarray], np.ndarray]:
+    """A transform named in `_INVERSE`, or an (inverse, forward) pair of a
+    map's own (the MMDiT's patch and positional-grid layouts)."""
+    return _INVERSE[tf] if isinstance(tf, str) else tf[0]
+
+
+def _forward(tf) -> Callable[[np.ndarray], np.ndarray]:
+    return _FORWARD[tf] if isinstance(tf, str) else tf[1]
+
+
 def _keep_dtype(leaf) -> np.ndarray:
     """int8 leaves (W8A8 kernels) stay int8; everything else becomes fp32."""
     a = np.asarray(leaf)
@@ -92,7 +102,7 @@ def _bridge(tree: Mapping[str, Any], key_fn) -> dict[str, torch.Tensor]:
     parts: dict[str, list] = {}
     for path, leaf in _leaves(tree):
         key, tf, *part = key_fn(path)
-        w = _INVERSE[tf](_keep_dtype(leaf))
+        w = _inverse(tf)(_keep_dtype(leaf))
         if part and isinstance(key, str):
             i, n = part[0]
             parts.setdefault(key, [None] * n)[i] = w
@@ -129,7 +139,7 @@ def _to_tree(like: Mapping[str, Any], sd: Mapping[str, torch.Tensor], key_fn,
         if part and isinstance(key, str):
             i, n = part[0]
             w = np.split(w, n, axis=0)[i]
-        w = _FORWARD[tf](w)
+        w = _forward(tf)(w)
         if w.shape != tuple(v.shape):
             raise KeyError(f"{key}: shape {w.shape} vs the tree's {tuple(v.shape)}")
         out[k] = np.ascontiguousarray(w)
@@ -298,13 +308,16 @@ def _clip_text_key(path: tuple[str, ...]) -> tuple[str, str]:
         return f"{base}.embeddings.position_embedding.weight", _ID
     if name == "ln_final":
         return _kinds(leaf)[2](f"{base}.final_layer_norm")
+    if name == "text_proj":      # CLIPTextModelWithProjection's head, bias-free
+        return "text_projection.weight", _LINEAR
     if m := re.match(r"block_(\d+)$", name):
         return _clip_block_key(p, f"{base}.encoder.layers.{m[1]}", False)
     raise KeyError(f"unmapped CLIP-text param {'/'.join(path)}")
 
 
 def clip_text_state_dict(tree: Mapping[str, Any]):
-    """Flax `CLIPTextEncoder` params -> the port's `CLIPTextEncoder` state dict."""
+    """Flax `CLIPTextEncoder` params (with `text_proj`: HF
+    CLIPTextModelWithProjection keys) -> the port's `CLIPTextEncoder` state dict."""
     return _bridge(tree, _clip_text_key)
 
 
@@ -791,3 +804,96 @@ def lama_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
               ratio_g: float = 0.75) -> dict[str, Any]:
     """The port's LaMa state dict -> a Flax tree of `like`'s structure."""
     return _to_tree(like, sd, _lama_fn(like, ratio_g))
+
+
+# ---- MM-DiT (convert.py `_mmdit_key`, `convert_mmdit`) ----------------------
+
+def _swap_halves(w: np.ndarray) -> np.ndarray:
+    d = w.shape[0] // 2
+    return np.concatenate([w[d:], w[:d]], axis=0)
+
+
+# AdaLayerNormContinuous stores (scale || shift); the JAX package's Dense is
+# shift first (`t_swap_halves_lin`, `t_swap_halves_bias`)
+_SWAP_LIN = (lambda k: _swap_halves(np.transpose(k)), lambda w: np.transpose(_swap_halves(w)))
+_SWAP_VEC = (_swap_halves, _swap_halves)
+# the positional grid: (max, max, D) in the Flax tree, (1, max^2, D) in diffusers
+_POS_GRID = (lambda w: w.reshape(1, -1, w.shape[-1]),
+             lambda w: w[0].reshape(int(round(w.shape[1] ** 0.5)), -1, w.shape[-1]))
+
+
+def _patch_conv(patch: int):
+    """`t_patch_conv_as_dense` both ways: the Flax patch Dense ((p, p, C)
+    flattened, D) <-> the PatchEmbed conv (D, C, p, p)."""
+    def inverse(k):
+        return np.transpose(k.reshape(patch, patch, -1, k.shape[-1]), (3, 2, 0, 1))
+
+    def forward(w):
+        return np.transpose(w, (2, 3, 1, 0)).reshape(-1, w.shape[0])
+    return inverse, forward
+
+
+_MMDIT_BLOCK = {"img_q": "attn.to_q", "img_k": "attn.to_k", "img_v": "attn.to_v",
+                "txt_q": "attn.add_q_proj", "txt_k": "attn.add_k_proj",
+                "txt_v": "attn.add_v_proj", "img_proj": "attn.to_out.0",
+                "txt_proj": "attn.to_add_out", "img_fc1": "ff.net.0.proj",
+                "img_fc2": "ff.net.2", "txt_fc1": "ff_context.net.0.proj",
+                "txt_fc2": "ff_context.net.2", "img_qn": "attn.norm_q",
+                "img_kn": "attn.norm_k", "txt_qn": "attn.norm_added_q",
+                "txt_kn": "attn.norm_added_k"}
+
+
+def _mmdit_key(path: tuple[str, ...], last_block: int, patch: int):
+    p = _strip(path)
+    name, leaf = p[0], p[-1]
+    _, lin, _ = _kinds(leaf)
+    kernel = leaf in ("kernel", "kernel_q")
+    if name == "pos_emb":
+        return "pos_embed.pos_embed", _POS_GRID
+    if name == "patch_in":
+        return ("pos_embed.proj.weight", _patch_conv(patch)) if kernel \
+            else ("pos_embed.proj.bias", _ID)
+    top = {"ctx_in": "context_embedder", "t_fc1": "time_text_embed.timestep_embedder.linear_1",
+           "t_fc2": "time_text_embed.timestep_embedder.linear_2",
+           "p_fc1": "time_text_embed.text_embedder.linear_1",
+           "p_fc2": "time_text_embed.text_embedder.linear_2", "patch_out": "proj_out"}
+    if name in top:
+        return lin(top[name])
+
+    def swapped(base):
+        return (f"{base}.weight", _SWAP_LIN) if kernel else (f"{base}.bias", _SWAP_VEC)
+    if name == "final_mod":
+        return swapped("norm_out.linear")
+    if m := re.match(r"block_(\d+)$", name):
+        b, sub = f"transformer_blocks.{m[1]}", p[1]
+        if sub == "img_mod":
+            return lin(f"{b}.norm1.linear")
+        if sub == "txt_mod":
+            return swapped(f"{b}.norm1_context.linear") if int(m[1]) == last_block \
+                else lin(f"{b}.norm1_context.linear")
+        if sub.endswith(("_qn", "_kn")):
+            return f"{b}.{_MMDIT_BLOCK[sub]}.weight", _ID
+        if sub in _MMDIT_BLOCK:
+            return lin(f"{b}.{_MMDIT_BLOCK[sub]}")
+    raise KeyError(f"unmapped MMDiT param {'/'.join(path)}")
+
+
+def _mmdit_fn(tree: Mapping[str, Any], patch: int):
+    p = tree.get("params", tree)
+    last = max(int(k.split("_")[1]) for k in p if k.startswith("block_"))
+    return lambda path: _mmdit_key(path, last, patch)
+
+
+def mmdit_state_dict(tree: Mapping[str, Any], patch: int = 2):
+    """Flax `MMDiT` params (float or W8A8) -> the port's `MMDiT` state dict
+    (diffusers SD3Transformer2DModel keys): the patch Dense as the PatchEmbed
+    conv, the positional grid as (1, max^2, D), and the adaLN-Continuous
+    modulations (`norm_out`, the last block's `norm1_context`) with their
+    halves swapped into diffusers' (scale, shift) order."""
+    return _bridge(tree, _mmdit_fn(tree, patch))
+
+
+def mmdit_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
+               patch: int = 2) -> dict[str, Any]:
+    """The port's MMDiT state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _mmdit_fn(like, patch))

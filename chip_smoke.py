@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: every path that runs a hand
 kernel, the scorers, one record through the factory executor, the
-inpainting edits, and one chunk through the executor's chunk mode.
+inpainting, geometry and outpainting edits, one chunk through the
+executor's chunk mode, and one SD3-UltraEdit record.
 
     python3 chip_smoke.py
 
@@ -112,6 +113,37 @@ line, with the launches of the path that gives the kernel that shape. Then:
      chunk, so the batched edit fills `edit_batch_bucket` (the UNet at
      batch 12): the batch stages present, no fall-back, no live unmasked
      IP2P call, the four edits in one batched call (K1 1,000).
+After `inpaint reference`, `ultraedit reference` holds the tiny UltraEdit
+slot (MMDiT with its modulations drawn live, the flow edit, the SD3 VAE,
+CLIP-L with projection, CLIP-G, T5) in bf16 on the card against fp32 on the
+CPU, within twice the CPU's own bf16 distance. After phase 14:
+ 16. geometry records: one real `ground()` of a 480x640 image (K2 exactly
+     4, K1 0), then one resize, movement, relation and outpainting record
+     through `get_pipeline` on the full-width grounder and LaMa, the
+     grounder's answer on the source image replaced by synthetic detections
+     of two drawn objects (the real grounding still runs), so that the
+     erase-and-paste path runs: each succeeds, K1 0, K2 4 a grounding, the
+     moved object's pixels are the source's bytes, the outpainting input is
+     the box expanded by 10 %; seconds a record; K2's launches tallied by
+     shape.
+After the chunk phase, on a zoo of its own (freed after):
+ 17. ultraedit: one appearance_alter record at 480x640 through
+     `get_pipeline` with `install(tb, "ultraedit")` at full width
+     (SD3_ULTRAEDIT, T5_XXL, CLIP_BIGG_TEXT, the SD3 VAE; seeded weights,
+     the modulations zero as in the JAX package) and an IP2P slot that
+     raises: success, 50 steps at 8.0 / 1.5, K1 0 (so the UltraEdit route
+     ran, not the IP2P fallback), K2 two groundings' 8 plus one SD3 VAE
+     encode and decode (counted alone first), tallied by shape; seconds for
+     the record and its edit, the MMDiT call at batch 3 beside its bound
+     (`mmdit_bound_ms`), the SD3 conditioning of one text, the peak GiB;
+     then, all with the same live modulations, the bf16 MMDiT call against
+     an fp32 MMDiT (relative L2 <= MMDIT_FP32_REL_L2) and a W8A8 MMDiT
+     (`quant_diffusion`) against the bf16 one (cosine > 0.95).
+The kernels phase also holds K2 at the shapes of these two paths (the
+GroundingDINO norms at batch 1; the SD3 VAE's norms at batch 1 and 512 px,
+K2_SD3_VAE_SHAPES); each of those rows carries the launches at its shape in
+its path's run (`k2_tally`), which must launch K2 at no other shape. The K1
+row carries `launches_geometry` and `launches_ultraedit` (0 both).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -119,6 +151,7 @@ with the kernels' numbers and one with the device.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import struct
 import subprocess
@@ -185,13 +218,43 @@ BUCKET_TYPES = ("color_alter",) * 4
 SLICE_K1 = [((48, 4096, 40), "chunk"), ((48, 1024, 80), "chunk"),
             ((96, 4096, 40), "bucket"), ((96, 1024, 80), "bucket"),
             ((16, 4096, 40), "sd"), ((16, 1024, 80), "sd")]
+# K2 in one SD3 VAE encode and decode of a 512 px canvas at batch 1, bf16
+# (52 launches: 22 in the encoder, 30 in the decoder; without SiLU only at
+# the mid-block attention's norm)
+K2_SD3_VAE_SHAPES = [((1, 128, 512, 512), True), ((1, 128, 256, 256), True),
+                     ((1, 256, 512, 512), True), ((1, 256, 256, 256), True),
+                     ((1, 256, 128, 128), True), ((1, 512, 256, 256), True),
+                     ((1, 512, 128, 128), True), ((1, 512, 64, 64), True),
+                     ((1, 512, 64, 64), False)]
 SLICE_K2 = [((6, 320, 64, 64), True, "chunk"), ((2, 128, 512, 512), True, "chunk"),
             ((12, 320, 64, 64), True, "bucket"), ((4, 128, 512, 512), True, "bucket"),
             ((2, 320, 64, 64), True, "sd")] + [
-    ((4,) + g[1:], False, "chunk") for g in K2_GDINO_SHAPES]
+    ((4,) + g[1:], False, "chunk") for g in K2_GDINO_SHAPES] + [
+    (g, False, "geometry") for g in K2_GDINO_SHAPES] + [
+    (s, silu, "ultraedit") for s, silu in K2_SD3_VAE_SHAPES]
+# The rows of "chunk", "bucket" and "sd" carry the kernel's launches in the
+# whole run of their path; those of "geometry" and "ultraedit" the launches
+# at their own shape (K2_TALLY_PATHS), and the GroundingDINO rows at batch 1
+# also the UltraEdit record's (its two groundings).
 PATHS = {"chunk": "chunk of 4 (2 color_alter edits batched: the UNet at batch 6; 2 remove)",
          "bucket": "bucket of 4 color_alter edits (the UNet at batch 12)",
-         "sd": "background_change record (the SD inpainter's UNet at batch 2)"}
+         "sd": "background_change record (the SD inpainter's UNet at batch 2)",
+         "geometry": "geometry records (resize, movement, relation, outpainting: "
+                     "GroundingDINO at batch 1)",
+         "ultraedit": "appearance_alter record through UltraEdit (the SD3 VAE's encode "
+                      "and decode at batch 1)"}
+K2_TALLY_PATHS = ("geometry", "ultraedit")
+# The geometry records (resize, movement, relation, outpainting) and their
+# two drawn objects (xyxy in a 480x640 image): the edited one covers 15.6 %
+# of the frame (outpainting takes a box of 10-50 %)
+GEOM_TYPES = ("resize", "movement", "relation", "outpainting")
+GEOM_BOXES = {"car": (200, 140, 440, 340), "tree": (40, 60, 160, 400)}
+ULTRA_STEPS = 50        # edits/global_.py appearance_alter knobs (50, 8.0, 1.5)
+# The full-width bf16 MMDiT call (bf16 weights and Linears, fp32 residual
+# stream, live modulations) against the same MMDiT in fp32 at batch 3:
+# relative L2 of the velocity. An H100 measured 5.63e-3; the limit leaves
+# room for other GEMM tilings, not for an overflow or a lost block.
+MMDIT_FP32_REL_L2 = 0.02
 # A batched 100-step bf16 edit against the same record's per-record edit:
 # the UNet at batch 6 against 3 tiles its GEMMs otherwise, and guidance 8
 # amplifies the bf16 differences over the steps. Mean uint8 distance; an
@@ -248,20 +311,64 @@ def report_k2(shape: str, r: dict) -> None:
 
 def check_chunk_kernels(dev):
     """K1 and K2 at SLICE_K1 / SLICE_K2, with the bounds of `check_kernels`.
-    Returns [(kernel, shape, row, path)]."""
+    Returns [(kernel, shape, row, path, (shape, silu))]; K1's silu is None."""
     from anyedit_tpu_torch.ops import kernel_check as kc
 
     rows = []
     for s, path in SLICE_K1:
         r = kc.check_flash_nomax(*s, dev)
         report_k1(str(s), r)
-        rows.append(("flash_nomax", str(s), r, path))
+        rows.append(("flash_nomax", str(s), r, path, (s, None)))
+    gdino_hw = {g[1:] for g in K2_GDINO_SHAPES}
     for s, silu, path in SLICE_K2:
-        tag = f"{s} {'silu' if silu else 'gdino'}"
-        r = kc.check_group_norm(s, silu, dev, iters=5 if s[1] == 128 else 10)
+        tag = f"{s} {'silu' if silu else 'gdino' if s[1:] in gdino_hw else 'plain'}"
+        r = kc.check_group_norm(s, silu, dev, iters=5 if np.prod(s) >= 2 ** 24 else 10)
         report_k2(tag, r)
-        rows.append(("group_norm", tag, r, path))
+        rows.append(("group_norm", tag, r, path, (s, silu)))
     return rows
+
+
+@contextlib.contextmanager
+def k2_tally():
+    """K2's launches inside the block by (shape, SiLU, dtype): the models
+    reach K2 through `models/layers.py`'s `group_norm`, which is wrapped
+    for the block; a call is tallied only where the wrapper's count rose."""
+    import collections
+    from anyedit_tpu_torch.models import layers
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+
+    tally = collections.Counter()
+
+    def spy(x, scale, bias, num_groups=32, eps=1e-5, silu=False):
+        n0 = group_norm.launches
+        y = group_norm(x, scale, bias, num_groups, eps, silu)
+        if group_norm.launches > n0:
+            tally[(tuple(x.shape), bool(silu), str(x.dtype))] += 1
+        return y
+    layers.group_norm = spy
+    try:
+        yield tally
+    finally:
+        layers.group_norm = group_norm
+
+
+def k2_rows_launches(tallies: dict) -> dict:
+    """{(shape, silu, path): launches} for the SLICE_K2 rows of
+    K2_TALLY_PATHS. Every (shape, SiLU) a path launched must be held at bf16
+    by a row of that path, or (the UltraEdit record's groundings) of
+    "geometry"."""
+    held = {p: {(s, silu) for s, silu, q in SLICE_K2 if q == p} for p in K2_TALLY_PATHS}
+    out = {}
+    for path, tally in tallies.items():
+        seen = {(s, silu) for s, silu, _ in tally}
+        dtypes = {d for _, _, d in tally}
+        allowed = held[path] | (held["geometry"] if path == "ultraedit" else set())
+        require(seen <= allowed and seen >= held[path] and dtypes == {"torch.bfloat16"},
+                f"the {path} path launched K2 at {sorted(seen)} in {dtypes}; held at "
+                f"{sorted(allowed)} in bf16")
+        for (s, silu, _), n in tally.items():
+            out[(s, silu, path)] = n
+    return out
 
 
 def check_kernels(dev):
@@ -687,8 +794,9 @@ def color_alter_record(dev, zoo, k2_per_request: int):
     flash_nomax.launches = 0
     group_norm.launches = 0
     t0 = time.perf_counter()
-    out = get_pipeline(rec.edit_type)(tb, rec, img, np.random.default_rng(0))
-    torch.cuda.synchronize()
+    with k2_tally() as tally:
+        out = get_pipeline(rec.edit_type)(tb, rec, img, np.random.default_rng(0))
+        torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
 
@@ -1329,6 +1437,307 @@ def slice3_records(dev, zoo):
     return seconds, (first, spent["sd_inpaint"]), launches["background_change"]
 
 
+def live_modulations_(mmdit, seed: int):
+    """Draw every adaLN modulation weight of `mmdit` (zero at the seeded
+    init, as in the JAX package, which leaves every gate at 0 and the block
+    stack out of the output) from N(0, 1/fan_in), seeded, in place, on the
+    weights' device, so that the blocks reach the output."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, mod in mmdit.named_modules():
+            if name.endswith(("norm1.linear", "norm1_context.linear", "norm_out.linear")):
+                w = torch.randn(mod.weight.shape, generator=gen) / mod.weight.shape[1] ** 0.5
+                mod.weight.copy_(w)
+    return mmdit
+
+
+def check_ultraedit_reference(dev):
+    """The tiny UltraEdit slot (MMDiT, flow edit, SD3 VAE, CLIP-L with
+    projection, CLIP-G, T5) in bf16 on the card against the same slot in
+    fp32 on the CPU, with the same weights (the MMDiT's modulations drawn
+    live) and noise: the card within twice the CPU's own bf16 distance."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+
+    def cfg(dtype):
+        r = dataclasses.replace
+        return r(tiny, mmdit=r(tiny.mmdit, dtype=dtype), sd3_vae=r(tiny.sd3_vae, dtype=dtype),
+                 text=r(tiny.text, dtype=dtype), text_g=r(tiny.text_g, dtype=dtype),
+                 flux_text=r(tiny.flux_text, dtype=dtype))
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    for z in zoos.values():
+        z.ultraedit_fn()
+    live_modulations_(zoos["ref"]._mmdit(), 7)
+    for k in ("cpu16", "card16"):
+        for name in ("mmdit", "sd3_vae", "clip_text_sd3", "clip_text_g", "t5"):
+            zoos[k]._cache[name].load_state_dict(zoos["ref"]._cache[name].state_dict())
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (48, 40, 3), np.uint8)
+    mask = np.zeros((48, 40), np.float32)
+    mask[8:40, 4:32] = 1.0
+    noise = torch.from_numpy(rng.standard_normal((2, 1, 32, 32, 4)).astype(np.float32))
+    out = {k: z.ultraedit_fn()(img, "make the jacket leather", mask, steps=3,
+                               init_latents=noise[0], renoise=noise[1]).astype(np.int32)
+           for k, z in zoos.items()}
+    err = {k: np.abs(out[k] - out["ref"]) for k in ("cpu16", "card16")}
+    for k, e in err.items():
+        print(f"tiny UltraEdit, {k} vs CPU fp32: uint8 max diff {e.max()} "
+              f"mean {e.mean():.4f}", flush=True)
+    require(np.abs(out["ref"] - img).mean() > 2.0, "the tiny edit changes the image")
+    require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
+            and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
+            "the card's bf16 UltraEdit slot is within twice the CPU's bf16 error")
+
+
+def geometry_records(dev, zoo):
+    """One real `ground()` of a 480x640 image (K2 exactly 4, K1 0), then
+    one record of each of GEOM_TYPES through `get_pipeline` on the
+    full-width grounder and LaMa. On the source image the grounder's answer
+    is replaced by synthetic detections of the two drawn objects (the real
+    grounding still runs each time), so that the erase-and-paste path runs:
+    every record succeeds with a uint8 frame, K1 0, K2 4 a grounding, the
+    movement's pasted pixels are the source object's bytes and the
+    outpainting input is the object's box expanded by 10 %. Returns the
+    launches of the four records, K2's tally of them (`k2_tally`) and their
+    seconds by type."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.grounding.maskgen import MAX_BOXES, grounding_result
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+
+    h, w = GROUND_HW
+    img = np.random.default_rng(13).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    for (x1, y1, x2, y2), colour in zip(GEOM_BOXES.values(), ((200, 30, 30), (30, 150, 40))):
+        img[y1:y2, x1:x2] = colour
+    real = zoo.grounder()
+    phrases = []
+
+    def synthetic(phrase, mode):
+        names = [n for n in GEOM_BOXES if n in phrase] or list(GEOM_BOXES)
+        masks = torch.full((MAX_BOXES, h, w), -1.0, device=dev)
+        boxes = torch.zeros((MAX_BOXES, 4), device=dev)
+        scores = torch.zeros((MAX_BOXES,), device=dev)
+        valid = torch.zeros((MAX_BOXES,), dtype=torch.bool, device=dev)
+        for i, name in enumerate(names):
+            x1, y1, x2, y2 = GEOM_BOXES[name]
+            masks[i, y1:y2, x1:x2] = 1.0
+            boxes[i] = torch.tensor([x1, y1, x2, y2], dtype=torch.float32)
+            scores[i], valid[i] = 0.9 - 0.1 * i, True
+        return grounding_result(masks, boxes, scores, valid, (h, w), mode, None)
+
+    def ground(image, phrase, mode="merge", count_k=None):
+        g = real(image, phrase, mode=mode, count_k=count_k)
+        phrases.append(phrase)
+        return synthetic(phrase, mode) if image is img else g
+
+    tb = Toolbox(ground=ground, inpaint=zoo.inpainter())
+    real(img, "car")
+    torch.cuda.synchronize()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    real(img, "car")
+    torch.cuda.synchronize()
+    one = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    require(one == {"flash_nomax": 0, "group_norm": K2_PER_GROUND},
+            f"one ground() launched {one}, want K1 0 and K2 {K2_PER_GROUND}")
+
+    seconds = {}
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    phrases.clear()
+    with k2_tally() as tally:
+        for et in GEOM_TYPES:
+            rec = InstructionRecord.from_json(dict(RECORD, edit_type=et, **{"new object": "tree"}))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = get_pipeline(et)(tb, rec, img, np.random.default_rng(0))
+            torch.cuda.synchronize()
+            seconds[et] = time.perf_counter() - t0
+            require(out.success and out.edited is not None and out.edited.dtype == np.uint8
+                    and out.edited.shape == img.shape, f"the {et} record succeeded ({out.reason})")
+            x1, y1, x2, y2 = GEOM_BOXES["car"]
+            if et == "movement":
+                draws = np.random.default_rng(0)
+                delta = int(draws.integers(50, 121))
+                dx = -delta if draws.choice(["left", "right"]) == "left" else delta
+                half = (x2 - x1) // 2
+                nx1 = int(np.clip((x1 + x2) // 2 + dx, half, w - half)) - half
+                require(np.array_equal(out.edited[y1:y2, nx1:nx1 + x2 - x1], img[y1:y2, x1:x2]),
+                        "the moved object's pixels are the source object's bytes")
+            if et == "outpainting":
+                ex, ey = int(0.1 * (x2 - x1)), int(0.1 * (y2 - y1))
+                require(np.array_equal(out.input_image, img[y1 - ey:y2 + ey, x1 - ex:x2 + ex])
+                        and out.edited is img, "outpainting: the expanded crop and the full frame")
+            print(f"{et} record {h}x{w}: {seconds[et]:.3f} s; \"{rec.edit}\"", flush=True)
+
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    want = {"flash_nomax": 0, "group_norm": K2_PER_GROUND * len(phrases)}
+    require(launches == want, f"the geometry records launched {launches}, want {want} "
+            f"({len(phrases)} groundings)")
+    require(sum(tally.values()) == launches["group_norm"], "K2's tally holds every launch")
+    print(f"geometry records: {len(phrases)} groundings, launches {launches}", flush=True)
+    return launches, dict(tally), seconds
+
+
+def mmdit_bound_ms(m, batch: int, n_txt: int, n_img: int) -> tuple[float, str, float]:
+    """(bound ms, "operations" or "bytes", TFLOP) of one MMDiT call: each
+    image token through its stream's q, k, v, out and FFN Linears (12 d^2
+    MACs), each text token through its own (the last block: q, k, v only),
+    the joint attention's QK^T and PV (2 L^2 d MACs a block), the patch,
+    context and output projections and the per-row adaLN Linears, at 989
+    TFLOP/s (bf16 dense); against the parameters read once and the inputs
+    and output moved once at 3.35 TB/s."""
+    c = m.cfg
+    d, length = c.dim, n_txt + n_img
+    macs = (c.depth * 12 * n_img + (c.depth - 1) * 12 * n_txt + 3 * n_txt) * d * d
+    macs += c.depth * 2 * length ** 2 * d
+    macs += ((c.in_channels + c.out_channels) * c.patch ** 2 * n_img
+             + c.context_dim * n_txt) * d
+    macs = batch * (macs + ((c.depth - 1) * 12 + 8 + 2) * d * d)
+    flop = 2.0 * macs
+    moved = sum(p.numel() * p.element_size() for p in m.parameters()) + batch * 4 * (
+        n_img * c.patch ** 2 * (c.in_channels + c.out_channels) + n_txt * c.context_dim)
+    ops_ms, bytes_ms = flop / 989e12 * 1e3, moved / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop / 1e12
+
+
+def ultraedit(dev, uzoo):
+    """One full-width appearance_alter record with the UltraEdit slot
+    installed (`install(tb, "ultraedit")`; an IP2P slot that raises beside
+    it): success, K1 0 (the IP2P UNet's self-attention is K1's; the MMDiT's
+    joint attention and the SD3 VAE's take sdpa), K2 two groundings' plus
+    one SD3 VAE encode and decode (counted alone first), tallied by shape
+    (`k2_tally`); then the MMDiT call at batch 3 (CUDA events) and the SD3
+    conditioning of one text (median of 3). Returns (launches, numbers)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    c = uzoo.cfg
+
+    def no_ip2p(*a, **k):
+        raise RuntimeError("the IP2P fallback ran")
+    t0 = time.perf_counter()
+    tb = Toolbox(ground=uzoo.grounder(), ip2p=no_ip2p)
+    uzoo.install(tb, "ultraedit")
+    torch.cuda.synchronize()
+    print(f"UltraEdit zoo (SD3_ULTRAEDIT MMDiT, T5-XXL, CLIP-L with projection, CLIP-bigG, "
+          f"SD3 VAE; grounder) built on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB resident", flush=True)
+    edit, spent = tb.extra["ultraedit"], {}
+
+    def timed_edit(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = edit(*a, **k)
+        torch.cuda.synchronize()
+        spent["edit"] = time.perf_counter() - t1
+        spent["knobs"] = (k["steps"], k["s_txt"], k["s_img"])
+        return out
+    tb.extra["ultraedit"] = timed_edit
+    img = np.random.default_rng(14).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    text = "make the car look like brushed leather"
+    with torch.inference_mode():
+        uzoo._from_latents(uzoo._to_latents([img], "sd3_vae"), [GROUND_HW], "sd3_vae")
+        torch.cuda.synchronize()
+        group_norm.launches = 0
+        uzoo._from_latents(uzoo._to_latents([img], "sd3_vae"), [GROUND_HW], "sd3_vae")
+    k2_vae = group_norm.launches
+
+    rec = InstructionRecord.from_json(dict(RECORD, edit_type="appearance_alter", edit=text))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    t0 = time.perf_counter()
+    with k2_tally() as tally:
+        out = get_pipeline(rec.edit_type)(tb, rec, img, np.random.default_rng(0))
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(out.success and out.edited.dtype == np.uint8 and out.edited.shape == img.shape,
+            f"the appearance_alter record succeeded with a uint8 frame ({out.reason})")
+    require(spent.get("knobs") == (ULTRA_STEPS, 8.0, 1.5),
+            f"the record edited through UltraEdit at 50 steps, 8.0 / 1.5: {spent.get('knobs')}")
+    want = {"flash_nomax": 0, "group_norm": 2 * K2_PER_GROUND + k2_vae}
+    require(launches == want, f"the UltraEdit record launched {launches}, want {want} (K1 0: "
+            "the UltraEdit route ran, not the IP2P fallback)")
+    require(sum(tally.values()) == launches["group_norm"], "K2's tally holds every launch")
+
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(3, hw, hw, c.mmdit.in_channels, generator=g, device=dev)
+    t = torch.full((3,), 500.0, device=dev)
+    cond = uzoo.sd3_cond()
+    with torch.inference_mode():
+        ctx, pooled = cond(text)
+        args = (x, t, ctx.expand(3, -1, -1), pooled.expand(3, -1))
+        mmdit_ms = time_ms(lambda: uzoo._mmdit()(*args), iters=5)
+        cond_ms, _ = median_ms(lambda: cond(text))
+    bound_ms, bound_by, tflop = mmdit_bound_ms(uzoo._mmdit(), 3, ctx.shape[1],
+                                               (hw // c.mmdit.patch) ** 2)
+    nums = {"record_s": total, "edit_s": spent["edit"], "mmdit_ms": mmdit_ms,
+            "cond_ms": cond_ms, "peak_gib": peak, "args": args, "k2_tally": dict(tally)}
+    print(f"appearance_alter record {GROUND_HW[0]}x{GROUND_HW[1]} through UltraEdit: "
+          f"{total:.3f} s (the {ULTRA_STEPS}-step edit {spent['edit']:.3f} s); peak "
+          f"{peak:.2f} GiB allocated; MMDiT call at batch 3 ({ctx.shape[1]} text + "
+          f"{(hw // c.mmdit.patch) ** 2} image tokens) {mmdit_ms:.3f} ms against a bound of "
+          f"{bound_ms:.3f} ms ({bound_by}: {tflop:.3f} TFLOP); SD3 conditioning "
+          f"of one text (T5-XXL, CLIP-L, CLIP-bigG) {cond_ms:.2f} ms; K2 of one SD3 VAE "
+          f"encode + decode {k2_vae}; launches {launches}", flush=True)
+    return launches, nums
+
+
+def ultraedit_mmdit(dev, uzoo, args):
+    """The full-width MMDiT at the timed args, all three with the same live
+    modulations (`live_modulations_`, seed 8) and the same seeded init,
+    name by name: the bf16 call against an fp32 MMDiT (built once, freed
+    after) within MMDIT_FP32_REL_L2, and a W8A8 MMDiT (`quant_diffusion`,
+    quantized from the fp32 init; a second MMDiT only) against the bf16
+    one at cosine > 0.95. Returns (relative L2, cosine, fp32 ms, W8A8 ms)."""
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo
+
+    def mmdit(**changes):
+        cfg = dataclasses.replace(uzoo.cfg, **changes)
+        return live_modulations_(ModelZoo(cfg, dev, seed=0)._mmdit(), 8)
+
+    fm = live_modulations_(uzoo._mmdit(), 8)
+    with torch.inference_mode():
+        out = fm(*args).float()
+        f32 = mmdit(mmdit=dataclasses.replace(uzoo.cfg.mmdit, dtype=torch.float32))
+        ref = f32(*args).float()
+        f_ms = time_ms(lambda: f32(*args), iters=5)
+        del f32
+        torch.cuda.empty_cache()
+        rel = float((out - ref).norm() / ref.norm())
+        qm = mmdit(quant_diffusion=True)
+        cos = cosine(qm(*args), out)
+        q_ms = time_ms(lambda: qm(*args), iters=5)
+    print(f"MMDiT call at batch 3 (live modulations): bf16 against fp32 relative L2 "
+          f"{rel:.4e} (fp32 call {f_ms:.3f} ms); W8A8 call {q_ms:.3f} ms, against bf16 "
+          f"cosine {cos:.5f}", flush=True)
+    require(ref.isfinite().all() and out.isfinite().all() and rel <= MMDIT_FP32_REL_L2,
+            f"the bf16 MMDiT tracks the fp32 one (relative L2 <= {MMDIT_FP32_REL_L2})")
+    require(cos > 0.95, "the W8A8 MMDiT tracks the bf16 one (cosine > 0.95)")
+    return rel, cos, f_ms, q_ms
+
+
 def main() -> int:
     import torch
 
@@ -1370,6 +1779,9 @@ def main() -> int:
 
     with phase("inpaint reference"):
         check_inpaint_reference(dev)
+
+    with phase("ultraedit reference"):
+        check_ultraedit_reference(dev)
 
     with phase("lama"):
         lama_err, lama_ms = check_lama(dev)
@@ -1427,6 +1839,11 @@ def main() -> int:
         print(f"{card_line}: background_change {s3_seconds['background_change']:.3f} s "
               f"(SD inpainter {sd_s[0]:.3f} s; warm {sd_s[1]:.3f} s), style_change "
               f"{s3_seconds['style_change']:.3f} s", flush=True)
+
+    with phase("geometry records"):
+        geo_launches, geo_tally, geo_seconds = geometry_records(dev, zoo)
+        print(f"{card_line}: " + ", ".join(f"{k} {v:.3f} s" for k, v in geo_seconds.items()),
+              flush=True)
     del zoo
     torch.cuda.empty_cache()
 
@@ -1439,6 +1856,21 @@ def main() -> int:
               f"(peak {peak['per_record']:.2f} GiB), bucket of 4 edits {sec['bucket']:.3f} s "
               f"a record (peak {peak['bucket']:.2f} GiB); batched edits within a mean of "
               f"{ch['edit_dist']:.3f} levels of their per-record edits", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # UltraEdit on a zoo of its own (box_threshold 0.0, so the random
+    # detector keeps boxes), freed after the phase
+    uzoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    with phase("ultraedit"):
+        u_launches, u = ultraedit(dev, uzoo)
+        print(f"{card_line}: appearance_alter through UltraEdit {u['record_s']:.3f} s a record "
+              f"(edit {u['edit_s']:.3f} s), MMDiT {u['mmdit_ms']:.3f} ms a call, conditioning "
+              f"{u['cond_ms']:.2f} ms, peak {u['peak_gib']:.2f} GiB", flush=True)
+        ultraedit_mmdit(dev, uzoo, u.pop("args"))
+    del uzoo
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1470,12 +1902,22 @@ def main() -> int:
         row["launches_executor_record"] = e_launches[row["name"]]
         row["launches_chunk"] = ch["launches"]["chunk"][row["name"]]
         row["launches_bucket"] = ch["launches"]["bucket"][row["name"]]
+    # K1 runs at no shape on the geometry and UltraEdit paths: 0 launches
+    kernels[0]["launches_geometry"] = geo_launches["flash_nomax"]
+    kernels[0]["launches_ultraedit"] = u_launches["flash_nomax"]
     # this slice's shapes, each its own row, with the kernel's launches in
-    # the run of the path that gives it that shape
+    # the run of the path that gives it that shape (at that shape, for
+    # K2_TALLY_PATHS)
     path_launches = {"sd": sd_launches, **ch["launches"]}
+    tallied = k2_rows_launches({"geometry": geo_tally, "ultraedit": u["k2_tally"]})
     sources = {k["name"]: (k["source"], k["replaces"]) for k in kernels}
-    for name, shape, r, path in slice_rows:
-        row = entry(name, *sources[name], path_launches[path][name], [(shape, r)])
+    for name, tag, r, path, key in slice_rows:
+        if path in K2_TALLY_PATHS:
+            row = entry(name, *sources[name], tallied[key + (path,)], [(tag, r)])
+            if path == "geometry":
+                row["launches_ultraedit"] = tallied.get(key + ("ultraedit",), 0)
+        else:
+            row = entry(name, *sources[name], path_launches[path][name], [(tag, r)])
         row["path"] = PATHS[path]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))

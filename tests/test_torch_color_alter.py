@@ -180,9 +180,10 @@ def test_registry_names_what_is_ported():
     assert get_pipeline("tone_transfer") is global_.tone_transfer
     with pytest.raises(KeyError, match="ported: \\['add', 'appearance_alter', "
                                        "'background_change', 'color_alter', 'counting', "
-                                       "'material_alter', 'remove', 'replace', "
+                                       "'material_alter', 'movement', 'outpainting', "
+                                       "'relation', 'remove', 'replace', 'resize', "
                                        "'style_change', 'tone_transfer'\\]"):
-        get_pipeline("movement")
+        get_pipeline("action_change")
 
 
 def test_grounder_on_the_card_raises_without_cuda(monkeypatch):

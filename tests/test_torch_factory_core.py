@@ -184,13 +184,14 @@ def _compare(port, ref, path):
 
 def test_tiny_zoo_config_matches_jax():
     """The port's tiny config against `anyedit_tpu/cli.py::tiny_zoo_config`
-    on every field they share, `box_threshold` (0.0) included; the
-    T5 hash modulus is the JAX config's `flux_text.vocab_size`."""
+    on every field they share, `box_threshold` (0.0) included, and
+    UltraEdit's fields (`sd3_vae`, `text_g`, `flux_text`, whose vocabulary
+    is the T5 hash modulus, and `mmdit`)."""
     port, ref = tiny_zoo_config(), jax_tiny_zoo_config()
     assert port.box_threshold == ref.box_threshold == 0.0
-    assert port.t5_hash_vocab == ref.flux_text.vocab_size == 30522
+    assert port.flux_text.vocab_size == ref.flux_text.vocab_size == 30522
     shared = _fields(port).keys() & _fields(ref).keys()
     assert {"canvas", "gdino", "sam", "ip2p_unet", "vae", "text", "vision", "eva",
-            "qformer", "box_threshold"} <= shared
+            "qformer", "box_threshold", "sd3_vae", "text_g", "flux_text", "mmdit"} <= shared
     for name in sorted(shared):
         _compare(getattr(port, name), getattr(ref, name), f"cfg.{name}")

@@ -45,7 +45,8 @@ def params():
 
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the executor, the filters,
-    T5, BLIP-2, LaMa, the samplers, the local edits, the ledger and rng
+    T5, BLIP-2, LaMa, the samplers, the local, geometry and outpainting
+    edits, the MMDiT, the flow sampler and UltraEdit, the ledger and rng
     among them), `chip_smoke.py` and the port's benches loads neither jax,
     flax nor anyedit_tpu, and no import statement in them names one."""
     code = (
@@ -64,7 +65,8 @@ def test_port_imports_no_jax():
         "          'filters.post_filter', 'filters.scorers', 'models.t5',\n"
         "          'models.blip2', 'core.ledger', 'core.rng', 'core.png',\n"
         "          'models.lama', 'diffusion.sampling', 'edits.local',\n"
-        "          'edits.implicit'):\n"
+        "          'edits.implicit', 'edits.geometry', 'edits.outpainting',\n"
+        "          'models.mmdit', 'schedulers.flow', 'diffusion.ultraedit'):\n"
         "    assert 'anyedit_tpu_torch.' + m in sys.modules, m\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -12,6 +12,7 @@
     python3 tools/bench_torch_ip2p.py --latency [--int8]  # s per 100-step request
     python3 tools/bench_torch_ip2p.py --ground     # grounding stage + color_alter record
     python3 tools/bench_torch_ip2p.py --scorers    # scorer slots + one executor record
+    python3 tools/bench_torch_ip2p.py --ultraedit  # SD3-UltraEdit: MMDiT, conditioning, record
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -30,7 +31,12 @@ does the same for the full-width scorer slots (CLIP-L vision and text,
 the aesthetic MLP, EVA ViT-g + Q-Former + FLAN-T5-XL yes/no) and one gated
 `color_alter` record through `FactoryExecutor` (pre-gate on the image size,
 as `chip_smoke.py`'s executor run (b)), with the record's seconds by
-executor stage. Every line names the card and its power limit.
+executor stage. `--ultraedit` does the same for SD3-UltraEdit at full
+width (SD3_ULTRAEDIT MMDiT, T5-XXL, CLIP-L with projection, CLIP-bigG, the
+SD3 VAE): one MMDiT call at batch 3, the SD3 conditioning of one text, and
+one appearance_alter record through the registry with the slot installed
+(50 steps, two groundings), with the peak memory of the run. Every line
+names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -611,6 +617,46 @@ def bench_scorers(dev, runs: int = 3) -> list[dict]:
     return rows
 
 
+def bench_ultraedit(dev, runs: int = 3) -> list[dict]:
+    """SD3-UltraEdit at full width (`ModelZoo(ZooConfig(box_threshold=0.0))`,
+    seeded weights on the card, a 480x640 image), as `bench_ground` times
+    its parts: the MMDiT call at batch 3 (3-way CFG: 77 CLIP + 77 T5 text
+    tokens, 1,024 image tokens), the SD3 conditioning of one text, and one
+    appearance_alter record through `get_pipeline` with
+    `install(tb, "ultraedit")`. The last row adds the run's peak allocated
+    GiB."""
+    import numpy as np
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    tb = Toolbox(ground=zoo.grounder())
+    zoo.install(tb, "ultraedit")
+    c = zoo.cfg
+    text = "make the car look like brushed leather"
+    img = np.random.default_rng(14).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    rec = InstructionRecord.from_json(dict(RECORD, edit_type="appearance_alter", edit=text))
+    record, cond, mmdit = get_pipeline(rec.edit_type), zoo.sd3_cond(), zoo._mmdit()
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(6)
+    with torch.inference_mode():
+        ctx, pooled = cond(text)
+    args = (torch.randn(3, hw, hw, c.mmdit.in_channels, generator=g, device=dev),
+            torch.full((3,), 500.0, device=dev), ctx.expand(3, -1, -1), pooled.expand(3, -1))
+    tokens = ctx.shape[1] + (hw // c.mmdit.patch) ** 2
+    torch.cuda.reset_peak_memory_stats()
+    work = [(f"mmdit call (SD3_ULTRAEDIT, batch 3, {tokens} tokens)", lambda: mmdit(*args)),
+            ("sd3 conditioning of one text (T5-XXL, CLIP-L, CLIP-bigG)", lambda: cond(text)),
+            ("appearance_alter record through UltraEdit (50 steps, 2 groundings)",
+             lambda: record(tb, rec, img, np.random.default_rng(0)))]
+    rows = timed_rows(work, runs)
+    rows[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -633,11 +679,13 @@ def main() -> int:
                       help="the grounding stage and one color_alter record instead")
     mode.add_argument("--scorers", action="store_true",
                       help="the scorer slots and one gated executor record instead")
+    mode.add_argument("--ultraedit", action="store_true",
+                      help="the MMDiT, the SD3 conditioning and one UltraEdit record instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
-                      or args.paths or args.ground or args.scorers):
+                      or args.paths or args.ground or args.scorers or args.ultraedit):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -664,6 +712,8 @@ def main() -> int:
         rows = bench_ground(dev)
     elif args.scorers:
         rows = bench_scorers(dev)
+    elif args.ultraedit:
+        rows = bench_ultraedit(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
