@@ -1,5 +1,6 @@
 """Classifier-free-guidance samplers over an `eps_fn` (counterpart of
-`anyedit_tpu/diffusion/sampling.py`): masked inpainting so far.
+`anyedit_tpu/diffusion/sampling.py`): masked inpainting, and the
+Prompt-to-Prompt pair sampler of the JAX zoo's `p2p_pair`.
 
 The JAX package draws the start latents from `key` and the re-noise noise
 from `fold_in(key, 1)` inside the function; here both are inputs (drawn
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 
 from anyedit_tpu_torch.diffusion.ip2p import EpsFn, _noise
+from anyedit_tpu_torch.diffusion.processors import AttentionStore
 from anyedit_tpu_torch.schedulers import NoiseSchedule, add_noise, ddim_init, ddim_step
 
 
@@ -54,3 +56,26 @@ def sample_inpaint(eps_fn: EpsFn, ns: NoiseSchedule,
                if i + 1 < num_steps else image_latents)
         lat = mask_latent * lat + (1.0 - mask_latent) * ren
     return lat
+
+
+def p2p_sample(unet, ns: NoiseSchedule, ctx4: torch.Tensor, z0: torch.Tensor,
+               store: AttentionStore, num_steps: int = 20,
+               guidance_scale: float = 7.5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both captions of a pair from one shared start latent z0 (1, h, w, C):
+    one batch-4 UNet call a step over ctx4 = [uncond, uncond, cond_src,
+    cond_tgt] under `store`'s processor; the conditional rows [2:4] of the
+    FIRST largest map the store kept are summed over the steps. Returns
+    (latents (2, h, w, C), accumulated maps (2, L, T))."""
+    st = ddim_init(ns, num_steps)
+    lat = torch.cat([z0, z0], dim=0).float()
+    acc = None
+    for i in range(num_steps):
+        store.reset()
+        eps4 = unet(torch.cat([lat, lat], dim=0), st.timesteps[i].expand(4), ctx4,
+                    processor=store.processor())
+        maps = store.collect()
+        best = maps[max(maps, key=lambda n: maps[n].shape[1])][2:4]
+        acc = best if acc is None else acc + best
+        e_u, e_c = eps4.chunk(2, dim=0)
+        lat = ddim_step(ns, st, i, e_u + guidance_scale * (e_c - e_u), lat)
+    return lat, acc

@@ -1,5 +1,5 @@
-"""SD3-UltraEdit masked instruction editing (counterpart of
-`anyedit_tpu/diffusion/ultraedit.py::ultraedit_edit`).
+"""SD3-UltraEdit masked instruction editing and Flux pair synthesis
+(counterpart of `anyedit_tpu/diffusion/ultraedit.py`).
 
 The 3-way-CFG flow-matching edit loop of the SD3 InstructPix2Pix pipeline:
 one batched velocity call a step over the conditioning rows [full,
@@ -9,7 +9,12 @@ channels. With a mask, the source is re-noised to the next noise level and
 composited outside the mask after each step. The JAX function draws its
 start latents and re-noise noise from a key inside; here both are inputs
 (the zoo's `ultraedit_fn` draws them), so the parity tests hand both sides
-the same noise. `flux_sample` / `flux_pair` come with the Flux slot.
+the same noise.
+
+`flux_sample` is plain rectified-flow sampling (flux-schnell: 4 steps, no
+CFG, shift 1.0), one velocity call a step; `flux_pair` samples two
+captions from the SAME start noise, so only what the captions change
+differs (textual_change). The noise is an input here too.
 """
 
 from __future__ import annotations
@@ -66,3 +71,28 @@ def ultraedit_edit(v_fn: VFn,
                    if i + 1 < num_steps else image_latents)
             lat = mask * lat + (1.0 - mask) * ren
     return lat
+
+
+def flux_sample(v_fn: VFn, noise: torch.Tensor, ctx: torch.Tensor, pooled: torch.Tensor,
+                num_steps: int = 4, shift: float = 1.0,
+                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """noise: the start latents (B, h, w, C), N(0, 1). Returns the sampled
+    latents fp32. `guidance` (B,) goes to guidance-distilled models (FLUX_DEV)."""
+    st = flow_init(num_steps, shift=shift, device=noise.device)
+    lat = noise.float()
+    b = lat.shape[0]
+    for i in range(num_steps):
+        t = st.timesteps[i].expand(b)
+        v = v_fn(lat, t, ctx, pooled) if guidance is None else \
+            v_fn(lat, t, ctx, pooled, guidance)
+        lat = flow_step(st, i, v, lat)
+    return lat
+
+
+def flux_pair(v_fn: VFn, noise: torch.Tensor,
+              ctx_a: torch.Tensor, pooled_a: torch.Tensor,
+              ctx_b: torch.Tensor, pooled_b: torch.Tensor,
+              num_steps: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """textual_change: the SAME start noise for both captions."""
+    return (flux_sample(v_fn, noise, ctx_a, pooled_a, num_steps),
+            flux_sample(v_fn, noise, ctx_b, pooled_b, num_steps))

@@ -3,7 +3,9 @@ over the edit types ported so far."""
 
 from __future__ import annotations
 
-from anyedit_tpu_torch.edits import geometry, global_, implicit, local, outpainting
+from anyedit_tpu_torch.edits import (
+    action_change, geometry, global_, implicit, local, outpainting, textual,
+)
 from anyedit_tpu_torch.edits.types import Pipeline
 
 EDIT_PIPELINES: dict[str, Pipeline] = {
@@ -12,11 +14,14 @@ EDIT_PIPELINES: dict[str, Pipeline] = {
     "counting": local.remove,
     "replace": local.replace,
     "background_change": local.background_change,
+    "action_change": action_change.action_change,
     "color_alter": global_.color_alter,
     "tone_transfer": global_.tone_transfer,
     "appearance_alter": global_.appearance_alter,
     "material_alter": global_.appearance_alter,
+    "implicit_change": implicit.implicit_change,
     "style_change": implicit.style_change,
+    "textual_change": textual.textual_change,
     "resize": geometry.resize_movement,
     "movement": geometry.resize_movement,
     "relation": geometry.relation_change,

@@ -38,6 +38,10 @@ SD_VAE = VAEConfig()
 # package it keeps quant_conv / post_quant_conv and scales without a shift;
 # diffusers' SD3 VAE has neither conv and shifts by 0.0609 (ROADMAP queue 3).
 SD3_VAE = dataclasses.replace(SD_VAE, latent_channels=16, scaling_factor=1.5305)
+# The Flux VAE as the JAX zoo defines it (`runtime/zoo.py:73`), with the same
+# fault: diffusers' Flux VAE has no quant_conv / post_quant_conv and shifts
+# by 0.1159 before scaling (ROADMAP queue 3).
+FLUX_VAE = dataclasses.replace(SD_VAE, latent_channels=16, scaling_factor=0.3611)
 TINY_VAE = VAEConfig(block_channels=(16, 32), layers_per_block=1, num_groups=8,
                      scaling_factor=0.5)
 

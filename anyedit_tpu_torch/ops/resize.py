@@ -6,7 +6,9 @@ separable weight matrices are built here the way
 `jax.image.scale_and_translate` builds them: half-pixel centres, the kernel
 widened by the downscale factor when antialiasing, columns normalised to sum
 to one, and a dimension whose size does not change left untouched (so a
-same-shape resize is the identity).
+same-shape resize is the identity). "nearest" is JAX's index gather, source
+index floor((i + 0.5) * in / out) in fp32 (torch's "nearest-exact", not its
+"nearest"); it ignores `antialias`, as JAX does.
 """
 
 from __future__ import annotations
@@ -53,9 +55,24 @@ def _weight_mat(in_size: int, out_size: int, kernel, antialias: bool,
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def _nearest_index(in_size: int, out_size: int) -> torch.Tensor:
+    """The source index of each output position, as `jax.image.resize`'s
+    nearest computes it: ((i + 0.5) * in) / out in fp32, floored. Built on
+    the CPU (a CUDA division by a Python scalar may round otherwise)."""
+    pos = (torch.arange(out_size, dtype=torch.float32) + 0.5) * in_size / out_size
+    return torch.floor(pos).long()
+
+
 def resize_image(img: torch.Tensor, height: int, width: int,
                  method: str = "lanczos", antialias: bool = True) -> torch.Tensor:
     """Resize (..., H, W, C) images; returns fp32 (integer input is promoted)."""
+    if method == "nearest":
+        x = img if img.is_floating_point() else img.float()
+        nd = x.dim()
+        for axis, size in ((nd - 3, height), (nd - 2, width)):
+            if x.shape[axis] != size:
+                x = x.index_select(axis, _nearest_index(x.shape[axis], size).to(x.device))
+        return x
     if method not in _KERNELS:
         raise ValueError(f"resize_image: unsupported method {method!r}")
     kernel = _KERNELS[method]

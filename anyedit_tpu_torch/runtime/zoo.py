@@ -1,7 +1,8 @@
-"""The model zoo's grounding, editing, inpainting and scorer slots
-(counterpart of the `grounder()`, `ip2p()`, `inpainter()`, `sd_inpainter()`,
-`ultraedit_fn()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()` and
-`toolbox()` of `anyedit_tpu/runtime/zoo.py`).
+"""The model zoo's grounding, editing, inpainting, pair-synthesis and scorer
+slots (counterpart of the `grounder()`, `ip2p()`, `inpainter()`,
+`sd_inpainter()`, `ultraedit_fn()`, `masactrl_pair_fn()`, `p2p_pair()`,
+`flux_pair_fn()`, `text2img_fn()`, `clip_towers()`, `aesthetic_fn()`,
+`vqa_fn()` and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
 count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
@@ -40,6 +41,20 @@ mask01, steps, s_txt, s_img, seed)`: lanczos resize -> SD3 VAE encode ->
 the MMDiT (the mask at latent size above 0.25) -> SD3 VAE decode -> lanczos
 resize back; the MMDiT in W8A8 with `quant_diffusion`.
 
+The caption-pair synthesizers generate both sides of a record from its
+(input, output) captions on the SD1.5 text2img UNet (`sd_unet`, slot
+"unet_sd", one resident copy for both) at batch 4 (two branches x CFG):
+`masactrl_pair_fn()` returns `pair(src_caption, tgt_caption, seed)` (50
+DDIM steps from one shared start latent, MasaCtrl's K/V swap); `p2p_pair()`
+returns `run(ori_caption, tar_caption, keyword, seed)` (20 steps under an
+AttentionStore, the keyword's accumulated cross-attention map thresholded
+into a canvas-size mask). `flux_pair_fn()` returns `pair(caption_a,
+caption_b, seed)` and `text2img_fn()` `t2i(prompt, seed)`: 4 Flux steps from
+the seed's noise, conditioned on T5 (77 tokens) and CLIP-L's unprojected
+pooled output, decoded by the Flux VAE; the Flux in W8A8 with
+`quant_diffusion`. Each draws its start noise from `torch.Generator(seed)`
+unless given `noise=`.
+
 The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
 clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
 to the tower's size, ImageNet mean and std, as the JAX zoo), and
@@ -62,7 +77,9 @@ import torch
 import torch.nn.functional as F
 
 from anyedit_tpu_torch.core.config import CanvasConfig
-from anyedit_tpu_torch.diffusion import ip2p_edit, sample_inpaint, ultraedit_edit
+from anyedit_tpu_torch.diffusion import flux_sample, ip2p_edit, sample_inpaint, ultraedit_edit
+from anyedit_tpu_torch.diffusion.processors import AttentionStore, mask_from_ca
+from anyedit_tpu_torch.diffusion.sampling import p2p_sample
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
@@ -75,6 +92,7 @@ from anyedit_tpu_torch.models.clip import (
     CLIPTextEncoder, CLIPTextModel, CLIPVisionConfig, CLIPVisionEncoder,
 )
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
+from anyedit_tpu_torch.models.flux import FLUX_SCHNELL, TINY_FLUX, Flux, FluxConfig
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
 from anyedit_tpu_torch.models.lama import LAMA, TINY_LAMA, LamaConfig, LamaGenerator, pad_to_modulo
 from anyedit_tpu_torch.models.mmdit import SD3_ULTRAEDIT, TINY_MMDIT, MMDiT, MMDiTConfig
@@ -84,9 +102,11 @@ from anyedit_tpu_torch.models.sam import (
 from anyedit_tpu_torch.models.swin import TINY_SWIN
 from anyedit_tpu_torch.models.t5 import T5_XXL, TINY_T5, T5Config, T5Encoder
 from anyedit_tpu_torch.models.unet_sd import (
-    SD15_INPAINT_UNET, SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
+    SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
-from anyedit_tpu_torch.models.vae import SD3_VAE, SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig
+from anyedit_tpu_torch.models.vae import (
+    FLUX_VAE, SD3_VAE, SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig,
+)
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
@@ -99,7 +119,7 @@ from anyedit_tpu_torch.weights.init import seeded_init_
 @dataclasses.dataclass
 class ZooConfig:
     """The fields of the JAX `ZooConfig` that the grounding, editing,
-    inpainting and scorer slots read. With no SentencePiece model, T5 ids
+    inpainting, pair-synthesis and scorer slots read. With no SentencePiece model, T5 ids
     (UltraEdit's T5-XXL, the VQA question) are the hash ids modulo
     `flux_text.vocab_size`, as in the JAX zoo."""
 
@@ -110,20 +130,24 @@ class ZooConfig:
     lama: LamaConfig = LAMA
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     inpaint_unet: UNetConfig = SD15_INPAINT_UNET
+    sd_unet: UNetConfig = SD15_UNET            # 4-channel text2img (MasaCtrl)
     vae: VAEConfig = SD_VAE
     sd3_vae: VAEConfig = SD3_VAE               # UltraEdit's latent codec
+    flux_vae: VAEConfig = FLUX_VAE             # Flux's latent codec
     text: CLIPTextConfig = CLIP_L_TEXT
     text_g: CLIPTextConfig = CLIP_BIGG_TEXT    # SD3's second CLIP tower
     vision: CLIPVisionConfig = CLIP_L_VISION   # clip_image tower
-    flux_text: T5Config = T5_XXL               # SD3's T5 text encoder
+    flux_text: T5Config = T5_XXL               # SD3's and Flux's T5 text encoder
     mmdit: MMDiTConfig = SD3_ULTRAEDIT
+    flux: FluxConfig = FLUX_SCHNELL
     eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
     qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
-    # pure-sampling slots: of those the port has the SD inpainter and
-    # UltraEdit's MMDiT.
+    # pure-sampling slots: of those the port has the SD inpainter,
+    # UltraEdit's MMDiT and Flux. The attention-surgery slots (MasaCtrl,
+    # P2P) stay bf16: their processors read the raw attention.
     quant_ip2p: bool = False
     quant_diffusion: bool = False
     # records per batch-3n UNet call of `ip2p().batch` (the chunk-mode
@@ -151,8 +175,10 @@ def tiny_zoo_config() -> ZooConfig:
         lama=TINY_LAMA,
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
         inpaint_unet=dataclasses.replace(TINY_UNET, in_channels=9, **f32),
+        sd_unet=dataclasses.replace(TINY_UNET, **f32),
         vae=vae,
         sd3_vae=vae,
+        flux_vae=vae,
         text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32),
         # CLIP-L (32) + CLIP-G (16) = 48: the pooled width; the context is cut to 32
         text_g=dataclasses.replace(TINY_TEXT, hidden=16, heads=2, vocab_size=30522,
@@ -161,6 +187,7 @@ def tiny_zoo_config() -> ZooConfig:
         flux_text=dataclasses.replace(TINY_T5, vocab_size=30522, **f32),
         mmdit=dataclasses.replace(TINY_MMDIT, in_channels=9, out_channels=4, context_dim=32,
                                   pooled_dim=48, max_hw=16, **f32),
+        flux=dataclasses.replace(TINY_FLUX, context_dim=32, pooled_dim=32, **f32),
         eva=dataclasses.replace(TINY_VISION, **f32),
         qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
                                     **f32),
@@ -181,9 +208,9 @@ class ModelZoo:
     a model on "cuda" raises where CUDA is absent (no fallback to the CPU).
     params: optional Flax parameter trees (numpy leaves, as the JAX
     package's `load_params` returns them) under the JAX slot names
-    "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "vae", "clip_text", "clip_vision",
-    "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit", "sd3_vae",
-    "clip_text_sd3", "clip_text_g" and "t5"; a missing slot
+    "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "unet_sd", "vae", "clip_text",
+    "clip_vision", "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit",
+    "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux" and "flux_vae"; a missing slot
     gets a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
 
@@ -260,17 +287,20 @@ class ModelZoo:
         return lambda text: raw(text)[0]
 
     def _t5(self):
-        """text -> T5 hidden states (1, 77, dim) fp32 (SD3's long-text
-        context): 77 hash ids and no mask, as the JAX zoo's `_t5`."""
+        """text -> T5 hidden states (1, 77, dim) fp32 (SD3's and Flux's
+        long-text context): 77 hash ids and no mask, as the JAX zoo's `_t5`
+        (FluxPipeline gives schnell 256 tokens: ROADMAP queue 3)."""
         t5 = self._get("t5", lambda: self._load(
             T5Encoder(self.cfg.flux_text, device=self.device), "t5", bridge.t5_state_dict))
         return lambda text: t5(torch.from_numpy(self._t5_ids(text, 77)).to(self.device))
 
     def _vae_cfg(self, slot: str) -> VAEConfig:
-        return {"vae": self.cfg.vae, "sd3_vae": self.cfg.sd3_vae}[slot]
+        return {"vae": self.cfg.vae, "sd3_vae": self.cfg.sd3_vae,
+                "flux_vae": self.cfg.flux_vae}[slot]
 
     def _vae_named(self, slot: str) -> AutoencoderKL:
-        """The latent codec of a diffusion slot: "vae" (SD1.5) or "sd3_vae"."""
+        """The latent codec of a diffusion slot: "vae" (SD1.5), "sd3_vae" or
+        "flux_vae"."""
         vcfg = self._vae_cfg(slot)
         return self._get(slot, lambda: self._load(
             AutoencoderKL(vcfg, device=self.device), slot,
@@ -293,7 +323,10 @@ class ModelZoo:
         from `params` or seeded. With `quant`, the W8A8 module from the
         slot's float parameters: bridged from `params`, or the seeded init
         drawn on the device in fp32 (the float values the JAX package
-        quantizes), quantized once, here."""
+        quantizes), quantized once, here. The W8A8 module is built on the
+        meta device and takes the quantized tensors as they are, so the
+        peak is the fp32 module plus the int8 weights (Flux: about 57 GB,
+        not 91)."""
         if not quant:
             return self._load(make(cfg, device=self.device), slot, to_state_dict)
         if slot in self.params:
@@ -301,8 +334,11 @@ class ModelZoo:
         else:
             fcfg = dataclasses.replace(cfg, dtype=torch.float32)
             float_sd = seeded_init_(make(fcfg, device=self.device), self.seed).state_dict()
-        module = make(dataclasses.replace(cfg, quant=True), device=self.device)
-        module.load_state_dict(quantize_state_dict(module, float_sd), strict=True)
+        module = make(dataclasses.replace(cfg, quant=True), device="meta")
+        qsd = quantize_state_dict(module, float_sd)
+        del float_sd
+        module.load_state_dict({k: v.to(self.device) for k, v in qsd.items()}, strict=True,
+                               assign=True)
         return module.eval().requires_grad_(False)
 
     def _unet(self, slot: str, ucfg: UNetConfig, quant: bool) -> UNet2DCondition:
@@ -316,6 +352,18 @@ class ModelZoo:
         return self._get("mmdit", lambda: self._backbone(
             MMDiT, c, "mmdit_ultraedit", lambda t: bridge.mmdit_state_dict(t, c.patch),
             self.cfg.quant_diffusion))
+
+    def _flux(self) -> Flux:
+        """Flux (slot "flux"); W8A8 with `quant_diffusion`."""
+        return self._get("flux", lambda: self._backbone(
+            Flux, self.cfg.flux, "flux", bridge.flux_state_dict, self.cfg.quant_diffusion))
+
+    def _sd_core(self):
+        """(4-channel SD1.5 unet, noise_schedule) of the pair synthesizers,
+        slot "unet_sd", bf16 (their processors read the raw attention)."""
+        c = self.cfg
+        return self._get("sd_core", lambda: (
+            self._unet("unet_sd", c.sd_unet, False), make_noise_schedule(device=self.device)))
 
     def _ip2p_core(self):
         """(unet, noise_schedule)."""
@@ -564,9 +612,18 @@ class ModelZoo:
             tb.vqa_yes_no = self.vqa_fn()
         elif slot == "ultraedit":
             tb.extra["ultraedit"] = self.ultraedit_fn()
+        elif slot == "masactrl":
+            tb.extra["masactrl_pair"] = self.masactrl_pair_fn()
+        elif slot == "p2p_pair":
+            tb.extra["p2p_pair"] = self.p2p_pair()
+        elif slot == "flux_pair":
+            tb.extra["flux_pair"] = self.flux_pair_fn()
+        elif slot == "text2img":
+            tb.text2img = self.text2img_fn()
         else:
-            raise KeyError(f"unknown toolbox slot {slot!r} "
-                           "(ported: 'sd_inpaint', 'clip', 'aesthetic', 'vqa', 'ultraedit')")
+            raise KeyError(f"unknown toolbox slot {slot!r} (ported: 'sd_inpaint', 'clip', "
+                           "'aesthetic', 'vqa', 'ultraedit', 'masactrl', 'p2p_pair', "
+                           "'flux_pair', 'text2img')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
         """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
@@ -775,6 +832,148 @@ class ModelZoo:
                 return self._from_latents(out, [image_u8.shape[:2]], "sd3_vae")[0]
             return edit
         return self._get("ultraedit", build)
+
+    # ---- caption-pair synthesis --------------------------------------------
+    def _start_noise(self, shape, seed: int, noise: Optional[torch.Tensor]) -> torch.Tensor:
+        """`noise` on the device, or the first N(0, 1) draw of
+        `torch.Generator(seed)` there."""
+        if noise is not None:
+            return noise.to(self.device).float()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def _decode_u8(self, lat: torch.Tensor) -> np.ndarray:
+        """One SD-VAE decode of (B, h, w, 4) latents -> (B, S, S, 3) uint8 at
+        the canvas size (no resize, as the JAX zoo's pair slots)."""
+        imgs = self._vae().decode((lat / self.cfg.vae.scaling_factor).to(torch.bfloat16))
+        return denormalize_to_u8(imgs).cpu().numpy()
+
+    def masactrl_pair_fn(self):
+        """`pair(src_caption, tgt_caption, seed, steps=50, noise=None) ->
+        (src_u8, tgt_u8)`: `consistent_synthesis` from one shared start
+        latent (1, hw, hw, 4), the target reading the source's
+        self-attention K/V from step 5 / site 12 on (action_change_tool.py:
+        15-46); both latents decoded in one batch-2 VAE call."""
+        def build():
+            from anyedit_tpu_torch.edits.action_change import consistent_synthesis
+            c = self.cfg
+            unet, ns = self._sd_core()
+            self._vae()
+            text = self._text_encoder()
+            hw = c.canvas.edit_size // c.canvas.latent_down
+
+            def unet_apply(x, t, ctx, proc, extra):
+                return unet(x, t, ctx, processor=proc, extra=extra)
+
+            @torch.inference_mode()
+            def pair(src_caption: str, tgt_caption: str, seed: int, steps: int = 50,
+                     noise: Optional[torch.Tensor] = None):
+                z0 = self._start_noise((1, hw, hw, c.sd_unet.in_channels), seed, noise)
+                lat = consistent_synthesis(
+                    unet_apply, ns, text(src_caption).to(torch.bfloat16),
+                    text(tgt_caption).to(torch.bfloat16), text("").to(torch.bfloat16), z0,
+                    num_steps=steps)
+                u8 = self._decode_u8(lat)
+                return u8[0], u8[1]
+            return pair
+        return self._get("masactrl_pair", build)
+
+    def _keyword_token(self, caption: str, keyword: str) -> int:
+        """The keyword's first CLIP token position in the caption (the first
+        match of its ids without SOT / EOT), or 1."""
+        cap_ids = self.clip_tokenizer.encode(caption)
+        kw_ids = self.clip_tokenizer.encode(keyword)[1:-1]
+        for i in range(1, len(cap_ids) - len(kw_ids)):
+            if cap_ids[i:i + len(kw_ids)] == kw_ids:
+                return i
+        return 1
+
+    def p2p_pair(self):
+        """`run(ori_caption, tar_caption, keyword, seed, steps=20,
+        cfg_scale=7.5, noise=None) -> (ori_u8, tar_u8, mask (S, S) bool)`:
+        SD text2img of both captions from one shared start latent, one
+        batch-4 UNet call a step under an AttentionStore (maps up to
+        (hw / 2)^2 tokens); the conditional rows of the first largest map
+        accumulate over the steps, and the keyword's column of the target
+        row's mean, thresholded (`mask_from_ca`), resized "nearest" to the
+        canvas, gives the mask (implicit_tool.py:76-127 stage 1). The UNet
+        is `ip2p_unet` with 4 input channels under the "unet_sd" slot (the
+        pair slots' one UNet where that is `sd_unet`)."""
+        def build():
+            c = self.cfg
+            ucfg = dataclasses.replace(c.ip2p_unet, in_channels=4)
+            unet, ns = self._sd_core() if ucfg == c.sd_unet else self._get(
+                "p2p_core", lambda: (self._unet("unet_sd", ucfg, False),
+                                     make_noise_schedule(device=self.device)))
+            self._vae()
+            text = self._text_encoder()
+            size = c.canvas.edit_size
+            hw = size // c.canvas.latent_down
+            store = AttentionStore(max_hw=(hw // 2) ** 2)
+
+            @torch.inference_mode()
+            def run(ori_caption: str, tar_caption: str, keyword: str, seed: int,
+                    steps: int = 20, cfg_scale: float = 7.5,
+                    noise: Optional[torch.Tensor] = None):
+                un, co, ct = (text(t).to(torch.bfloat16) for t in ("", ori_caption, tar_caption))
+                ctx4 = torch.cat([un, un, co, ct], dim=0)
+                lat, acc = p2p_sample(unet, ns, ctx4,
+                                      self._start_noise((1, hw, hw, 4), seed, noise), store,
+                                      num_steps=steps, guidance_scale=cfg_scale)
+                u8 = self._decode_u8(lat)
+                tok = self._keyword_token(tar_caption, keyword)
+                ca_hw = int(np.sqrt(acc.shape[1]))
+                mask = mask_from_ca(acc[1:2] / max(1, steps), min(tok, acc.shape[-1] - 1), ca_hw)
+                full = resize_image(mask[0].float()[..., None], size, size, "nearest")[..., 0]
+                return u8[0], u8[1], (full > 0.5).cpu().numpy()
+            return run
+        return self._get("p2p_pair", build)
+
+    def _flux_sampler(self):
+        """`sample(prompt, seed, steps=4, out_hw=None, noise=None) ->
+        image_u8`: context = T5 at 77 tokens in bf16, pooled = CLIP-L's
+        unprojected pooled output (FluxPipeline's CLIPTextModel
+        pooler_output), 4 flow steps at shift 1.0, one Flux call a step at
+        batch 1, the Flux VAE's decode, lanczos to `out_hw` (the canvas)."""
+        def build():
+            c = self.cfg
+            flux = self._flux()
+            self._vae_named("flux_vae")
+            t5 = self._t5()
+            clip = self._text_raw("clip_text", c.text)
+            size = c.canvas.edit_size
+            hw = size // c.canvas.latent_down
+
+            @torch.inference_mode()
+            def sample(prompt: str, seed: int, steps: int = 4, out_hw=None,
+                       noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                ctx = t5(prompt).to(torch.bfloat16)
+                if ctx.shape[-1] != c.flux.context_dim:
+                    raise ValueError("flux_text.dim must equal flux.context_dim")
+                _, pooled, _ = clip(prompt)
+                z0 = self._start_noise((1, hw, hw, c.flux.in_channels), seed, noise)
+                out = flux_sample(flux, z0, ctx, pooled, num_steps=steps)
+                return self._from_latents(out, [out_hw or (size, size)], "flux_vae")[0]
+            return sample
+        return self._get("flux_sampler", build)
+
+    def flux_pair_fn(self):
+        """`pair(caption_a, caption_b, seed, steps=4, noise=None) -> (img_a,
+        img_b)`: the SAME seed (the same start noise) for both captions
+        (flux-schnell 4-step, textual_change_tool.py:24-41)."""
+        sample = self._flux_sampler()
+
+        def pair(caption_a: str, caption_b: str, seed: int, steps: int = 4,
+                 noise: Optional[torch.Tensor] = None):
+            return (sample(caption_a, seed, steps, noise=noise),
+                    sample(caption_b, seed, steps, noise=noise))
+        return pair
+
+    def text2img_fn(self):
+        """`t2i(prompt, seed=0) -> image_u8`: one Flux image at the canvas
+        size (local add's source regeneration, local_pipeline_tool.py:125-132)."""
+        sample = self._flux_sampler()
+        return lambda prompt, seed=0: sample(prompt, seed)
 
 
 @contextlib.contextmanager

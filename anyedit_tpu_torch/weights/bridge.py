@@ -897,3 +897,76 @@ def mmdit_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
                patch: int = 2) -> dict[str, Any]:
     """The port's MMDiT state dict -> a Flax tree of `like`'s structure."""
     return _to_tree(like, sd, _mmdit_fn(like, patch))
+
+
+# ---- Flux (convert.py `_flux_key`, `convert_flux`) --------------------------
+
+_FLUX_TOP = {"img_in": "x_embedder", "txt_in": "context_embedder",
+             "t_fc1": "time_text_embed.timestep_embedder.linear_1",
+             "t_fc2": "time_text_embed.timestep_embedder.linear_2",
+             "g_fc1": "time_text_embed.guidance_embedder.linear_1",
+             "g_fc2": "time_text_embed.guidance_embedder.linear_2",
+             "p_fc1": "time_text_embed.text_embedder.linear_1",
+             "p_fc2": "time_text_embed.text_embedder.linear_2",
+             "final_out": "proj_out"}
+_FLUX_DOUBLE = {"img_mod": "norm1.linear", "txt_mod": "norm1_context.linear",
+                "img_o": "attn.to_out.0", "txt_o": "attn.to_add_out",
+                "img_fc1": "ff.net.0.proj", "img_fc2": "ff.net.2",
+                "txt_fc1": "ff_context.net.0.proj", "txt_fc2": "ff_context.net.2",
+                "img_qn": "attn.norm_q", "img_kn": "attn.norm_k",
+                "txt_qn": "attn.norm_added_q", "txt_kn": "attn.norm_added_k"}
+_FLUX_SINGLE = {"mod": "norm.linear", "linear2": "proj_out",
+                "qn": "attn.norm_q", "kn": "attn.norm_k"}
+
+
+def _flux_key(path: tuple[str, ...], d: int):
+    p = _strip(path)
+    name, leaf = p[0], p[-1]
+    if leaf == "g":                        # the per-head RMS norms
+        leaf = "scale"
+    _, lin, _ = _kinds(leaf)
+    suff = lin("")[0][1:]
+
+    def fused(base, names, sizes):
+        return tuple(f"{base}.{n}.{suff}" for n in names), lin("")[1], sizes
+    if name in _FLUX_TOP:
+        return lin(_FLUX_TOP[name])
+    if name == "final_mod":
+        kernel = leaf in ("kernel", "kernel_q")
+        return ("norm_out.linear.weight", _SWAP_LIN) if kernel \
+            else ("norm_out.linear.bias", _SWAP_VEC)
+    if m := re.match(r"double_(\d+)$", name):
+        b, sub = f"transformer_blocks.{m[1]}", p[1]
+        if sub == "img_qkv":
+            return fused(f"{b}.attn", ("to_q", "to_k", "to_v"), (d, d, d))
+        if sub == "txt_qkv":
+            return fused(f"{b}.attn", ("add_q_proj", "add_k_proj", "add_v_proj"), (d, d, d))
+        if sub in _FLUX_DOUBLE:
+            return lin(f"{b}.{_FLUX_DOUBLE[sub]}")
+    if m := re.match(r"single_(\d+)$", name):
+        b, sub = f"single_transformer_blocks.{m[1]}", p[1]
+        if sub == "linear1":
+            return fused(b, ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"),
+                         (d, d, d, 4 * d))
+        if sub in _FLUX_SINGLE:
+            return lin(f"{b}.{_FLUX_SINGLE[sub]}")
+    raise KeyError(f"unmapped Flux param {'/'.join(path)}")
+
+
+def _flux_fn(tree: Mapping[str, Any]):
+    d = np.shape(tree.get("params", tree)["img_in"]["kernel"])[-1]
+    return lambda path: _flux_key(path, d)
+
+
+def flux_state_dict(tree: Mapping[str, Any]):
+    """Flax `Flux` params (float or W8A8) -> the port's `Flux` state dict
+    (diffusers FluxTransformer2DModel keys): each fused `*_qkv` split into
+    to_q, to_k, to_v (add_*_proj for text), each single block's `linear1`
+    into to_q, to_k, to_v and proj_mlp, and `final_mod` with its halves
+    swapped into `norm_out`'s (scale, shift) order."""
+    return _bridge(tree, _flux_fn(tree))
+
+
+def flux_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's Flux state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _flux_fn(like))

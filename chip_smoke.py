@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: every path that runs a hand
 kernel, the scorers, one record through the factory executor, the
 inpainting, geometry and outpainting edits, one chunk through the
-executor's chunk mode, and one SD3-UltraEdit record.
+executor's chunk mode, one SD3-UltraEdit record, and one record of each
+caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux).
 
     python3 chip_smoke.py
 
@@ -144,6 +145,33 @@ GroundingDINO norms at batch 1; the SD3 VAE's norms at batch 1 and 512 px,
 K2_SD3_VAE_SHAPES); each of those rows carries the launches at its shape in
 its path's run (`k2_tally`), which must launch K2 at no other shape. The K1
 row carries `launches_geometry` and `launches_ultraedit` (0 both).
+After `ultraedit reference`, `synth reference` holds the tiny caption-pair
+synthesizers in bf16 on the card against fp32 on the CPU (same weights,
+the Flux's modulations drawn live, same noise), each within twice the
+CPU's own bf16 distance: `consistent_synthesis` with the MasaCtrl swap
+active from step 1 and site 1, `p2p_pair()` (frames and keyword mask),
+`flux_pair_fn()` and the W8A8 tiny Flux. After phase 17, on a zoo of its
+own (the production `ZooConfig`, freed after):
+ 18. masactrl / p2p: `install(tb, "masactrl" | "p2p_pair")` at full width
+     (SD15_UNET at batch 4, the SD VAE, CLIP-L; one resident UNet), one
+     action_change record (50 steps) and one implicit_change record (3 P2P
+     pairs of 20 steps) through `FactoryExecutor` with both gates open:
+     success, both synthesized sides written as 512 px PNGs that differ,
+     K1 0 (every site takes sdpa), K2 tallied by shape; seconds and peak
+     GiB; then one `p2p_pair()` call: its keyword mask is a non-empty
+     512 x 512 bool array;
+ 19. flux: `install(tb, "flux_pair")` (FLUX_SCHNELL, T5-XXL, CLIP-L, the
+     Flux VAE; the modulations drawn live so that the captions reach the
+     image), one textual_change record the same way (K1 0), then the three
+     types in one chunk (`grounding_batch=3`), every record a success and
+     K1 0; one Flux call at batch 1 beside `flux_bound_ms`, peak GiB; the
+     zoo freed, then a W8A8 Flux (`quant_diffusion`) built alone with the
+     same modulations against the bf16 call's output (cosine > 0.95), its
+     build's peak GiB. K2 is then held at every (shape, SiLU) these paths
+     launched it (`synth_k2_rows`: the UNet at batch 4, the SD VAE decode
+     at batch 2, the Flux VAE decode at batch 1), each row with the
+     launches at its shape in each path's run; the K1 row carries
+     `launches_masactrl`, `launches_implicit` and `launches_flux` (0 all).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -1437,19 +1465,22 @@ def slice3_records(dev, zoo):
     return seconds, (first, spent["sd_inpaint"]), launches["background_change"]
 
 
-def live_modulations_(mmdit, seed: int):
-    """Draw every adaLN modulation weight of `mmdit` (zero at the seeded
-    init, as in the JAX package, which leaves every gate at 0 and the block
-    stack out of the output) from N(0, 1/fan_in), seeded, in place, on the
-    weights' device, so that the blocks reach the output."""
+def live_modulations_(model, seed: int):
+    """Draw every adaLN modulation weight of an MMDiT or a Flux (zero at the
+    seeded init, as in the JAX package, which leaves every gate at 0 and the
+    block stack out of the output) from N(0, 1/fan_in), seeded, in place, on
+    the weights' device, so that the blocks reach the output."""
     import torch
-    gen = torch.Generator().manual_seed(seed)
+    gen = None
     with torch.no_grad():
-        for name, mod in mmdit.named_modules():
-            if name.endswith(("norm1.linear", "norm1_context.linear", "norm_out.linear")):
-                w = torch.randn(mod.weight.shape, generator=gen) / mod.weight.shape[1] ** 0.5
-                mod.weight.copy_(w)
-    return mmdit
+        for name, mod in model.named_modules():
+            if name.endswith(("norm1.linear", "norm1_context.linear", "norm_out.linear",
+                              ".norm.linear")):
+                w = mod.weight
+                gen = gen or torch.Generator(device=w.device).manual_seed(seed)
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                        / w.shape[1] ** 0.5)
+    return model
 
 
 def check_ultraedit_reference(dev):
@@ -1738,6 +1769,335 @@ def ultraedit_mmdit(dev, uzoo, args):
     return rel, cos, f_ms, q_ms
 
 
+SYNTH_RECORDS = {
+    "action_change": {"edit": "make the dog jump", "input": "a dog sitting on the grass",
+                      "output": "a dog jumping over the grass", "edited object": "dog"},
+    "implicit_change": {"edit": "what if the ice melted", "input": "an ice cube on a table",
+                        "output": "a puddle of water on a table", "edited object": "puddle"},
+    "textual_change": {"edit": "change the sign to CLOSED",
+                       "input": 'a shop sign that says "OPEN"',
+                       "output": 'a shop sign that says "CLOSED"'}}
+# the pipelines' own knobs: MasaCtrl 50 steps, 3 P2P pairs of 20, Flux 4
+SYNTH_STEPS = {"action_change": 50, "implicit_change": 3 * 20, "textual_change": 2 * 4}
+SYNTH_PATHS = {"masactrl": ("action_change", "action_change record (MasaCtrl, 50 steps: the "
+                            "SD1.5 UNet at batch 4; the SD VAE decode at batch 2)"),
+               "implicit": ("implicit_change", "implicit_change record (3 P2P pairs of 20 "
+                            "steps under the AttentionStore: the SD1.5 UNet at batch 4; the "
+                            "SD VAE decode at batch 2)"),
+               "flux": ("textual_change", "textual_change record (Flux-schnell, 2 x 4 "
+                        "steps at batch 1; the Flux VAE decode at batch 1)")}
+
+
+def check_synth_reference(dev):
+    """The tiny pair synthesizers in bf16 on the card against the same in
+    fp32 on the CPU, with the same weights (the Flux's modulations drawn
+    live) and noise, each within twice the CPU's own bf16 distance:
+    `consistent_synthesis` with the MasaCtrl swap active (step 1, site 1),
+    `p2p_pair()` (frames and keyword mask), `flux_pair_fn()`, and one call
+    of the W8A8 tiny Flux quantized from the same fp32 weights."""
+    import torch
+    from anyedit_tpu_torch.edits.action_change import consistent_synthesis
+    from anyedit_tpu_torch.models.flux import Flux
+    from anyedit_tpu_torch.ops.quant import quantize_state_dict
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+    r = dataclasses.replace
+
+    def cfg(dtype):
+        return r(tiny, sd_unet=r(tiny.sd_unet, dtype=dtype),
+                 ip2p_unet=r(tiny.ip2p_unet, dtype=dtype), vae=r(tiny.vae, dtype=dtype),
+                 flux_vae=r(tiny.flux_vae, dtype=dtype), text=r(tiny.text, dtype=dtype),
+                 flux_text=r(tiny.flux_text, dtype=dtype), flux=r(tiny.flux, dtype=dtype))
+
+    def models(z):
+        return (z._sd_core()[0], z._vae(), z._vae_named("flux_vae"),
+                z._text_model("clip_text", z.cfg.text), z._cache["t5"], z._flux())
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    for z in zoos.values():
+        z.masactrl_pair_fn(), z.p2p_pair(), z.flux_pair_fn()
+    live_modulations_(zoos["ref"]._flux(), 7)
+    for k in ("cpu16", "card16"):
+        for src, dst in zip(models(zoos["ref"]), models(zoos[k])):
+            dst.load_state_dict(src.state_dict())
+    rng = np.random.default_rng(15)
+    z0 = torch.from_numpy(rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
+    a, b = SYNTH_RECORDS["action_change"]["input"], SYNTH_RECORDS["action_change"]["output"]
+
+    def masactrl(z):
+        unet, ns = z._sd_core()
+        text = z._text_encoder()
+        with torch.inference_mode():
+            lat = consistent_synthesis(
+                lambda x, t, c, p, e: unet(x, t, c, processor=p, extra=e), ns,
+                *(text(s).to(torch.bfloat16) for s in (a, b, "")), z0.to(z.device),
+                num_steps=3, start_step=1, start_layer=1)
+            return z._decode_u8(lat)
+
+    outs = {k: {"masactrl": masactrl(z),
+                "p2p": z.p2p_pair()(a, b, "dog", 0, steps=3, noise=z0),
+                "flux": np.stack(z.flux_pair_fn()(a, b, 0, noise=z0))}
+            for k, z in zoos.items()}
+
+    def frames(o):
+        return np.stack(o[:2]) if isinstance(o, tuple) else o
+    for what in ("masactrl", "p2p", "flux"):
+        ref = frames(outs["ref"][what]).astype(np.int32)
+        err = {k: np.abs(frames(outs[k][what]).astype(np.int32) - ref)
+               for k in ("cpu16", "card16")}
+        line = ", ".join(f"{k} uint8 max diff {e.max()} mean {e.mean():.4f}"
+                         for k, e in err.items())
+        if what == "p2p":
+            miss = {k: float((outs[k]["p2p"][2] != outs["ref"]["p2p"][2]).mean())
+                    for k in ("cpu16", "card16")}
+            line += f"; keyword mask differs on {miss['cpu16']:.4f} / {miss['card16']:.4f}"
+            require(outs["card16"]["p2p"][2].dtype == np.bool_
+                    and miss["card16"] <= 2 * max(miss["cpu16"], 0.02),
+                    "the card's P2P keyword mask is within twice the CPU's bf16 distance")
+        print(f"tiny {what} vs CPU fp32: {line}", flush=True)
+        require(np.abs(ref[1] - ref[0]).mean() > 0.5, f"tiny {what}: the captions differ")
+        require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
+                and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
+                f"the card's bf16 {what} is within twice the CPU's bf16 error")
+
+    # 20 text tokens: `torch._int_mm` takes more than 16 rows
+    float_sd = zoos["ref"]._flux().state_dict()
+    g = np.random.default_rng(16)
+    args = [torch.from_numpy(g.standard_normal(s).astype(np.float32))
+            for s in ((1, 16, 16, 4), (1,), (1, 20, 32), (1, 32))]
+    args[1] = args[1].abs() * 500
+    vel = {}
+    for k, dtype, where in (("ref", torch.float32, "cpu"), ("cpu16", torch.bfloat16, "cpu"),
+                            ("card16", torch.bfloat16, dev)):
+        q = Flux(r(tiny.flux, dtype=dtype, quant=True), device=where)
+        q.load_state_dict(quantize_state_dict(Flux(r(tiny.flux, dtype=dtype, quant=True)),
+                                              float_sd))
+        with torch.inference_mode():
+            vel[k] = q.eval()(*(x.to(where) for x in args)).float().cpu()
+    rel = {k: float((vel[k] - vel["ref"]).norm() / vel["ref"].norm()) for k in ("cpu16", "card16")}
+    print(f"tiny W8A8 Flux call vs CPU W8A8 fp32: relative L2 cpu16 {rel['cpu16']:.3e}, "
+          f"card16 {rel['card16']:.3e}", flush=True)
+    require(vel["card16"].isfinite().all() and rel["card16"] <= 2 * max(rel["cpu16"], 2 ** -8),
+            "the card's W8A8 Flux is within twice the CPU's bf16 distance")
+
+
+def synth_executor(tb, records, img, grounding_batch: int = 0):
+    """`records` through `FactoryExecutor` with both gates open (no
+    pre-filter), in one run: (ledger lines, seconds, K1 / K2 launches, K2's
+    tally). Every count is set to 0 just before the run."""
+    import torch
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+
+    with tempfile.TemporaryDirectory() as root, gates_open():
+        ex = FactoryExecutor(tb, ExecutorConfig(output_root=root, run_pre_filter=False,
+                                                grounding_batch=grounding_batch))
+        torch.cuda.synchronize()
+        flash_nomax.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        with k2_tally() as tally:
+            ex.run(records, lambda rec: img)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+        lines = [json.loads(x) for x in (Path(root) / "ledger.jsonl").read_text().splitlines()]
+        for line in lines:
+            pay = line["payload"]
+            if line["status"] == "success":
+                edited = decode_png(Path(pay["edited_file"]).read_bytes())
+                source = decode_png(Path(pay["input_file"]).read_bytes())
+                line["frames"] = (source, edited)
+    return lines, seconds, launches, dict(tally)
+
+
+def synth_record(dev, tb, edit_type: str, size: int):
+    """One record of `edit_type` through `synth_executor`: success, both
+    synthesized sides written as canvas-size PNGs that differ, K1 0, K2's
+    launches all tallied. Returns (line, seconds, launches, tally, peak GiB)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+
+    rec = InstructionRecord.from_json(dict(SYNTH_RECORDS[edit_type], edit_type=edit_type,
+                                           id=edit_type))
+    img = np.random.default_rng(17).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    (line,), seconds, launches, tally = synth_executor(tb, [rec], img)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(line["status"] == "success" and "frames" in line,
+            f"the {edit_type} record succeeded through the executor ({line})")
+    src, out = line["frames"]
+    require(src.shape == out.shape == (size, size, 3)
+            and np.abs(src.astype(np.int32) - out).mean() > 0.5,
+            f"{edit_type}: both sides are {size} px frames and they differ")
+    require(launches["flash_nomax"] == 0, f"{edit_type} launched K1 {launches['flash_nomax']} "
+            "times, want 0 (every site takes sdpa)")
+    require(launches["group_norm"] > 0 and sum(tally.values()) == launches["group_norm"],
+            f"{edit_type}: K2 launched ({launches['group_norm']}) and every launch tallied")
+    print(f"{edit_type} record through FactoryExecutor (gates open): {seconds:.3f} s "
+          f"({SYNTH_STEPS[edit_type]} denoiser calls); peak {peak:.2f} GiB allocated; "
+          f"launches {launches}; K2 at {len(tally)} shapes", flush=True)
+    return line, seconds, launches, tally, peak
+
+
+def masactrl_p2p(dev, szoo, tb):
+    """One action_change and one implicit_change record through
+    `FactoryExecutor` on the full-width pair slots (SD15_UNET, SD VAE,
+    CLIP-L), then one 20-step `p2p_pair()` call: its keyword mask is a
+    non-empty canvas-size bool array. Returns ({path: (launches, tally)},
+    numbers)."""
+    import torch
+
+    size = szoo.cfg.canvas.edit_size
+    out, nums = {}, {}
+    for path in ("masactrl", "implicit"):
+        et = SYNTH_PATHS[path][0]
+        _, sec, launches, tally, peak = synth_record(dev, tb, et, size)
+        out[path] = (launches, tally)
+        nums[et] = {"record_s": sec, "peak_gib": peak}
+    rec = SYNTH_RECORDS["implicit_change"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ori, tar, mask = tb.extra["p2p_pair"](rec["input"], rec["output"], "puddle", 5)
+    torch.cuda.synchronize()
+    nums["p2p_pair_s"] = time.perf_counter() - t0
+    require(mask.dtype == np.bool_ and mask.shape == (size, size) and mask.any(),
+            f"the P2P keyword mask is a non-empty {size} x {size} bool array "
+            f"({mask.dtype}, {mask.shape}, {mask.mean():.4f} set)")
+    require(ori.shape == tar.shape == (size, size, 3), "the P2P pair is two canvas frames")
+    print(f"p2p_pair (20 steps): {nums['p2p_pair_s']:.3f} s; keyword mask "
+          f"{mask.mean() * 100:.2f} % of the canvas", flush=True)
+    return out, nums
+
+
+def flux_bound_ms(m, batch: int, n_txt: int, n_img: int) -> tuple[float, str, float]:
+    """(bound ms, "operations" or "bytes", TFLOP) of one Flux call, counted
+    per stream as `mmdit_bound_ms`: each token through its stream's q, k, v,
+    out and FFN Linears in a double block (12 d^2 MACs) and through
+    linear1 / linear2 in a single block (7 d^2 + 5 d^2), the joint
+    attention's QK^T and PV (2 L^2 d MACs a block), the patch, context and
+    output projections, and the per-row modulations (double 12 d^2, single
+    3 d^2, final 2 d^2) and embeddings, at 989 TFLOP/s (bf16 dense); against
+    the parameters (bf16 and fp32) read once and the inputs and output moved
+    once at 3.35 TB/s."""
+    c = m.cfg
+    d, length = c.dim, n_txt + n_img
+    macs = (c.double_depth + c.single_depth) * (12 * length * d * d + 2 * length ** 2 * d)
+    macs += (2 * c.patch ** 2 * c.in_channels * n_img + c.context_dim * n_txt) * d
+    rows = (12 * c.double_depth + 3 * c.single_depth + 2 + 2 + 2 * c.guidance_embed) * d * d
+    rows += (256 * (1 + c.guidance_embed) + c.pooled_dim) * d
+    flop = 2.0 * batch * (macs + rows)
+    moved = sum(p.numel() * p.element_size() for p in m.parameters()) + batch * 4 * (
+        2 * n_img * c.patch ** 2 * c.in_channels + n_txt * c.context_dim + c.pooled_dim)
+    ops_ms, bytes_ms = flop / 989e12 * 1e3, moved / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop / 1e12
+
+
+def flux_phase(dev, szoo, tb):
+    """One textual_change record through `FactoryExecutor` on the
+    full-width Flux slot (FLUX_SCHNELL, T5-XXL, CLIP-L, the Flux VAE; its
+    modulations drawn live, `live_modulations_` seed 9, since at the seeded
+    init, as in the JAX package, the captions do not reach the image), then
+    the three synthesized types in one chunk (`grounding_batch=3`): every
+    record a success, K1 0. Then one Flux call at batch 1 (77 text + 1,024
+    image tokens; CUDA events) beside `flux_bound_ms`; the W8A8 check keeps
+    its output. Returns ((launches, tally), numbers, args, bf16 velocity)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    c = szoo.cfg
+    size = c.canvas.edit_size
+    flux = live_modulations_(szoo._flux(), 9)
+    line, sec, launches, tally, peak = synth_record(dev, tb, "textual_change", size)
+    nums = {"record_s": sec, "peak_gib": peak}
+
+    recs = [InstructionRecord.from_json(dict(SYNTH_RECORDS[et], edit_type=et, id=et))
+            for et in SYNTH_RECORDS]
+    img = np.random.default_rng(17).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    lines, chunk_s, chunk_launches, _ = synth_executor(tb, recs, img, grounding_batch=3)
+    require([x["status"] for x in lines] == ["success"] * 3
+            and chunk_launches["flash_nomax"] == 0,
+            f"the chunk of three synthesized records: {[x['status'] for x in lines]}, "
+            f"launches {chunk_launches}")
+    print(f"chunk of 3 (action_change, implicit_change, textual_change; grounding_batch=3): "
+          f"{chunk_s:.3f} s, every record a success; launches {chunk_launches}", flush=True)
+    nums["chunk_s"] = chunk_s
+
+    hw = size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(1, hw, hw, c.flux.in_channels, generator=g, device=dev)
+    t = torch.full((1,), 500.0, device=dev)
+    text = SYNTH_RECORDS["textual_change"]["output"]
+    with torch.inference_mode():
+        ctx = szoo._t5()(text).to(torch.bfloat16)
+        _, pooled, _ = szoo._text_raw("clip_text", c.text)(text)
+        args = (x, t, ctx, pooled)
+        out = flux(*args).float()
+        flux_ms = time_ms(lambda: flux(*args), iters=5)
+    bound_ms, bound_by, tflop = flux_bound_ms(flux, 1, ctx.shape[1], (hw // c.flux.patch) ** 2)
+    require(out.isfinite().all() and out.shape == x.shape, "the Flux velocity is finite")
+    nums.update(flux_ms=flux_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tflop=tflop, resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    print(f"Flux call at batch 1 ({ctx.shape[1]} text + {(hw // c.flux.patch) ** 2} image "
+          f"tokens): {flux_ms:.3f} ms against a bound "
+          f"of {bound_ms:.3f} ms ({bound_by}: {tflop:.3f} TFLOP); textual_change record "
+          f"{sec:.3f} s, peak {peak:.2f} GiB", flush=True)
+    return (launches, tally), nums, args, out
+
+
+def flux_w8a8(dev, args, out):
+    """The W8A8 Flux (`quant_diffusion`, quantized from the fp32 seeded init
+    on a zoo of its own, the same live modulations) on the timed args
+    against the bf16 call's output: cosine > 0.95. Returns (cosine, ms,
+    peak GiB of the build and call)."""
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qzoo = ModelZoo(ZooConfig(quant_diffusion=True), dev, seed=0)
+    qm = live_modulations_(qzoo._flux(), 9)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        cos = cosine(qm(*args), out)
+        q_ms = time_ms(lambda: qm(*args), iters=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del qm, qzoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"W8A8 Flux (built in {build_s:.2f} s, peak {peak:.2f} GiB): call at batch 1 "
+          f"{q_ms:.3f} ms, against bf16 cosine {cos:.5f}", flush=True)
+    require(cos > 0.95, "the W8A8 Flux tracks the bf16 one (cosine > 0.95)")
+    return cos, q_ms, peak
+
+
+def synth_k2_rows(dev, tallies: dict) -> list:
+    """K2 at every (shape, SiLU) the synthesized paths launched it (bf16
+    only), held against its plain version with `check_kernels`' bounds:
+    [(tag, row, first path, {path: launches at the shape})]."""
+    from anyedit_tpu_torch.ops import kernel_check as kc
+
+    by_shape: dict = {}
+    for path, tally in tallies.items():
+        for (shape, silu, dtype), n in tally.items():
+            require(dtype == "torch.bfloat16", f"the {path} path launched K2 in {dtype}")
+            by_shape.setdefault((shape, silu), {})[path] = n
+    rows = []
+    for (shape, silu), per_path in sorted(by_shape.items()):
+        tag = f"{shape} {'silu' if silu else 'plain'}"
+        r = kc.check_group_norm(shape, silu, dev, iters=5 if np.prod(shape) >= 2 ** 24 else 10)
+        report_k2(tag, r)
+        rows.append((tag, r, next(iter(per_path)), per_path))
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1782,6 +2142,9 @@ def main() -> int:
 
     with phase("ultraedit reference"):
         check_ultraedit_reference(dev)
+
+    with phase("synth reference"):
+        check_synth_reference(dev)
 
     with phase("lama"):
         lama_err, lama_ms = check_lama(dev)
@@ -1872,6 +2235,33 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the caption-pair synthesizers on a zoo of their own (MasaCtrl and P2P
+    # on one SD1.5 UNet; Flux with T5-XXL), freed before the W8A8 Flux
+    from anyedit_tpu_torch.edits.types import Toolbox
+    szoo = ModelZoo(ZooConfig(), dev, seed=0)
+    stb = Toolbox()
+    with phase("masactrl / p2p"):
+        for slot in ("masactrl", "p2p_pair"):
+            szoo.install(stb, slot)
+        synth_paths, sy = masactrl_p2p(dev, szoo, stb)
+        print(f"{card_line}: action_change {sy['action_change']['record_s']:.3f} s, "
+              f"implicit_change {sy['implicit_change']['record_s']:.3f} s a record "
+              f"(peak {max(v['peak_gib'] for k, v in sy.items() if k.endswith('change')):.2f} "
+              f"GiB)", flush=True)
+
+    with phase("flux"):
+        szoo.install(stb, "flux_pair")
+        synth_paths["flux"], fx, fargs, fout = flux_phase(dev, szoo, stb)
+        del stb, szoo
+        gc.collect()
+        torch.cuda.empty_cache()
+        f_cos, f_qms, f_qpeak = flux_w8a8(dev, fargs, fout)
+        print(f"{card_line}: textual_change {fx['record_s']:.3f} s a record (peak "
+              f"{fx['peak_gib']:.2f} GiB), Flux {fx['flux_ms']:.3f} ms a call at batch 1 "
+              f"(bound {fx['bound_ms']:.3f} ms), W8A8 {f_qms:.3f} ms, cosine {f_cos:.5f} "
+              f"(build peak {f_qpeak:.2f} GiB)", flush=True)
+        synth_rows = synth_k2_rows(dev, {p: t for p, (_, t) in synth_paths.items()})
+
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
@@ -1902,9 +2292,12 @@ def main() -> int:
         row["launches_executor_record"] = e_launches[row["name"]]
         row["launches_chunk"] = ch["launches"]["chunk"][row["name"]]
         row["launches_bucket"] = ch["launches"]["bucket"][row["name"]]
-    # K1 runs at no shape on the geometry and UltraEdit paths: 0 launches
+    # K1 runs at no shape on the geometry, UltraEdit and caption-pair paths:
+    # 0 launches
     kernels[0]["launches_geometry"] = geo_launches["flash_nomax"]
     kernels[0]["launches_ultraedit"] = u_launches["flash_nomax"]
+    for path, (launches_p, _) in synth_paths.items():
+        kernels[0][f"launches_{path}"] = launches_p["flash_nomax"]
     # this slice's shapes, each its own row, with the kernel's launches in
     # the run of the path that gives it that shape (at that shape, for
     # K2_TALLY_PATHS)
@@ -1919,6 +2312,13 @@ def main() -> int:
         else:
             row = entry(name, *sources[name], path_launches[path][name], [(tag, r)])
         row["path"] = PATHS[path]
+        kernels.append(row)
+    # K2 at the caption-pair paths' shapes, each row with the launches at its
+    # shape in the first path that gives it, and in the others
+    for tag, r, path, per_path in synth_rows:
+        row = entry("group_norm", *sources["group_norm"], per_path[path], [(tag, r)])
+        row.update({f"launches_{p}": n for p, n in per_path.items() if p != path})
+        row["path"] = SYNTH_PATHS[path][1]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

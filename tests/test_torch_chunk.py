@@ -324,8 +324,8 @@ def test_first_ground_table_is_the_served_types():
     assert set(executor._FIRST_GROUND) <= set(EDIT_PIPELINES)
     for et in EDIT_PIPELINES:
         assert executor._FIRST_GROUND.get(et) == jexecutor._FIRST_GROUND.get(et), et
-    assert set(EDIT_PIPELINES) - set(executor._FIRST_GROUND) == {"tone_transfer",
-                                                                  "style_change"}
+    assert set(EDIT_PIPELINES) - set(executor._FIRST_GROUND) == {
+        "tone_transfer", "style_change", "action_change", "implicit_change", "textual_change"}
 
 
 def test_failed_memo_grounding_gets_no_batched_edit(tmp_path):

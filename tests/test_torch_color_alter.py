@@ -178,12 +178,14 @@ def test_color_alter_object_not_found(zoo_pair):
 def test_registry_names_what_is_ported():
     assert get_pipeline("color_alter") is global_.color_alter
     assert get_pipeline("tone_transfer") is global_.tone_transfer
-    with pytest.raises(KeyError, match="ported: \\['add', 'appearance_alter', "
-                                       "'background_change', 'color_alter', 'counting', "
+    with pytest.raises(KeyError, match="ported: \\['action_change', 'add', "
+                                       "'appearance_alter', 'background_change', "
+                                       "'color_alter', 'counting', 'implicit_change', "
                                        "'material_alter', 'movement', 'outpainting', "
                                        "'relation', 'remove', 'replace', 'resize', "
-                                       "'style_change', 'tone_transfer'\\]"):
-        get_pipeline("action_change")
+                                       "'style_change', 'textual_change', "
+                                       "'tone_transfer'\\]"):
+        get_pipeline("composition")
 
 
 def test_grounder_on_the_card_raises_without_cuda(monkeypatch):

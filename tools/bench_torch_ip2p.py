@@ -13,6 +13,8 @@
     python3 tools/bench_torch_ip2p.py --ground     # grounding stage + color_alter record
     python3 tools/bench_torch_ip2p.py --scorers    # scorer slots + one executor record
     python3 tools/bench_torch_ip2p.py --ultraedit  # SD3-UltraEdit: MMDiT, conditioning, record
+    python3 tools/bench_torch_ip2p.py --masactrl   # MasaCtrl / P2P: UNet b4, two records
+    python3 tools/bench_torch_ip2p.py --flux       # Flux-schnell: call, pair, textual_change
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -35,8 +37,15 @@ executor stage. `--ultraedit` does the same for SD3-UltraEdit at full
 width (SD3_ULTRAEDIT MMDiT, T5-XXL, CLIP-L with projection, CLIP-bigG, the
 SD3 VAE): one MMDiT call at batch 3, the SD3 conditioning of one text, and
 one appearance_alter record through the registry with the slot installed
-(50 steps, two groundings), with the peak memory of the run. Every line
-names the card and its power limit.
+(50 steps, two groundings), with the peak memory of the run.
+`--masactrl` times the caption-pair synthesizers on the SD1.5 UNet
+(SD15_UNET, SD VAE, CLIP-L): one batch-4 UNet call under the MasaCtrl
+processor (swap active) and one under the AttentionStore, one
+action_change record (50 steps) and one implicit_change record (3 P2P
+pairs of 20 steps); `--flux` times FLUX_SCHNELL (T5-XXL, CLIP-L, the Flux
+VAE): one Flux call at batch 1, one `flux_pair` (2 x 4 steps) and one
+textual_change record; both the same way, with the run's peak GiB. Every
+line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402  (the repo root, just put on the path)
-    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD, VQA_QUESTIONS,
+    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD, SYNTH_RECORDS, VQA_QUESTIONS,
 )
 
 SIZE = 512
@@ -657,6 +666,94 @@ def bench_ultraedit(dev, runs: int = 3) -> list[dict]:
     return rows
 
 
+def _synth_record(tb, edit_type: str):
+    """A closure running one record of `edit_type` through `get_pipeline`."""
+    import numpy as np
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+
+    rec = InstructionRecord.from_json(dict(SYNTH_RECORDS[edit_type], edit_type=edit_type))
+    img = np.zeros(GROUND_HW + (3,), np.uint8)
+    return lambda: get_pipeline(edit_type)(tb, rec, img, np.random.default_rng(0))
+
+
+def bench_masactrl(dev, runs: int = 3) -> list[dict]:
+    """The MasaCtrl and P2P pair slots at full width (`ModelZoo(ZooConfig())`,
+    seeded weights on the card), as `bench_ground` times its parts: the
+    SD1.5 UNet at batch 4 (two branches x CFG, 77 text tokens) under
+    `masactrl_processor(0, 0)` (the K/V swap at every self-attention site)
+    and under the AttentionStore (every site's fp32 probabilities written
+    out, the cross maps up to 32 x 32 kept), one action_change record and
+    one implicit_change record. The last row adds the run's peak GiB."""
+    import torch
+    from anyedit_tpu_torch.diffusion.processors import AttentionStore, masactrl_processor
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(), dev, seed=0)
+    tb = Toolbox()
+    for slot in ("masactrl", "p2p_pair"):
+        zoo.install(tb, slot)
+    unet, _ = zoo._sd_core()
+    hw = zoo.cfg.canvas.edit_size // zoo.cfg.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(4, hw, hw, 4, generator=g, device=dev)
+    t = torch.full((4,), 501, device=dev)
+    ctx = torch.randn(4, 77, zoo.cfg.sd_unet.context_dim, generator=g, device=dev).bfloat16()
+    masa = masactrl_processor(0, 0)
+    store = AttentionStore(max_hw=(hw // 2) ** 2)
+
+    def stored():
+        store.reset()
+        return unet(x, t, ctx, processor=store.processor())
+    torch.cuda.reset_peak_memory_stats()
+    work = [("unet call under MasaCtrl (SD15_UNET, batch 4, swap at all 16 sites)",
+             lambda: unet(x, t, ctx, processor=masa, extra={"step": 10})),
+            ("unet call under the AttentionStore (SD15_UNET, batch 4)", stored),
+            ("action_change record (MasaCtrl, 50 steps)", _synth_record(tb, "action_change")),
+            ("implicit_change record (3 P2P pairs of 20 steps)",
+             _synth_record(tb, "implicit_change"))]
+    rows = timed_rows(work, runs)
+    rows[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows
+
+
+def bench_flux(dev, runs: int = 3) -> list[dict]:
+    """The Flux pair slot at full width (`ModelZoo(ZooConfig())`: FLUX_SCHNELL,
+    T5-XXL, CLIP-L, the Flux VAE; seeded weights on the card), as
+    `bench_ground` times its parts: one Flux call at batch 1 (77 text +
+    1,024 image tokens), one `flux_pair` (2 x 4 steps, two T5 and CLIP
+    encodes, two Flux VAE decodes) and one textual_change record. The last
+    row adds the run's peak GiB."""
+    import torch
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(), dev, seed=0)
+    tb = Toolbox()
+    zoo.install(tb, "flux_pair")
+    c = zoo.cfg
+    flux = zoo._flux()
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(6)
+    text = SYNTH_RECORDS["textual_change"]["output"]
+    with torch.inference_mode():
+        ctx = zoo._t5()(text).to(torch.bfloat16)
+        _, pooled, _ = zoo._text_raw("clip_text", c.text)(text)
+    args = (torch.randn(1, hw, hw, c.flux.in_channels, generator=g, device=dev),
+            torch.full((1,), 500.0, device=dev), ctx, pooled)
+    rec = SYNTH_RECORDS["textual_change"]
+    tokens = ctx.shape[1] + (hw // c.flux.patch) ** 2
+    torch.cuda.reset_peak_memory_stats()
+    work = [(f"flux call (FLUX_SCHNELL, batch 1, {tokens} tokens)", lambda: flux(*args)),
+            ("flux_pair (2 x 4 steps, T5-XXL + CLIP-L, Flux VAE decodes)",
+             lambda: tb.extra["flux_pair"](rec["input"], rec["output"], 0)),
+            ("textual_change record (flux_pair)", _synth_record(tb, "textual_change"))]
+    rows = timed_rows(work, runs)
+    rows[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -681,11 +778,16 @@ def main() -> int:
                       help="the scorer slots and one gated executor record instead")
     mode.add_argument("--ultraedit", action="store_true",
                       help="the MMDiT, the SD3 conditioning and one UltraEdit record instead")
+    mode.add_argument("--masactrl", action="store_true",
+                      help="the UNet under MasaCtrl / the AttentionStore and two records instead")
+    mode.add_argument("--flux", action="store_true",
+                      help="the Flux call, one Flux pair and one textual_change record instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
-                      or args.paths or args.ground or args.scorers or args.ultraedit):
+                      or args.paths or args.ground or args.scorers or args.ultraedit
+                      or args.masactrl or args.flux):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -714,6 +816,10 @@ def main() -> int:
         rows = bench_scorers(dev)
     elif args.ultraedit:
         rows = bench_ultraedit(dev)
+    elif args.masactrl:
+        rows = bench_masactrl(dev)
+    elif args.flux:
+        rows = bench_flux(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
