@@ -1,11 +1,12 @@
 """Classifier-free-guidance samplers over an `eps_fn` (counterpart of
-`anyedit_tpu/diffusion/sampling.py`): masked inpainting, and the
-Prompt-to-Prompt pair sampler of the JAX zoo's `p2p_pair`.
+`anyedit_tpu/diffusion/sampling.py`): masked inpainting, SDEdit img2img
+(with an optional mask: the SDXL-inpaint loop), and the Prompt-to-Prompt
+pair sampler of the JAX zoo's `p2p_pair`.
 
-The JAX package draws the start latents from `key` and the re-noise noise
-from `fold_in(key, 1)` inside the function; here both are inputs (drawn
-from a `torch.Generator` when absent, start latents first), as in
-`diffusion/ip2p.py`.
+The JAX package draws the start noise from `key` and the re-noise noise
+from `fold_in(key, 1)` inside the function; here both are inputs
+(`sample_inpaint` draws them from a `torch.Generator` when absent, start
+noise first, as `diffusion/ip2p.py` does; `sample_img2img` requires them).
 """
 
 from __future__ import annotations
@@ -55,6 +56,42 @@ def sample_inpaint(eps_fn: EpsFn, ns: NoiseSchedule,
         ren = (add_noise(ns, image_latents, renoise, st.timesteps[i + 1])
                if i + 1 < num_steps else image_latents)
         lat = mask_latent * lat + (1.0 - mask_latent) * ren
+    return lat
+
+
+def sample_img2img(eps_fn: EpsFn, ns: NoiseSchedule, image_latents: torch.Tensor,
+                   cond_text: torch.Tensor, uncond_text: torch.Tensor,
+                   num_steps: int = 50, strength: float = 0.5,
+                   guidance_scale: float = 7.5, mask: Optional[torch.Tensor] = None,
+                   *, noise: torch.Tensor,
+                   renoise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """SDEdit img2img: the latents noised to step i0 = num_steps - n_run of
+    the DDIM grid, n_run = max(1, min(num_steps, round(num_steps *
+    strength))) (Python's round: 29.4 gives 29), then denoised from i0 with
+    2-way CFG, one batch-2b call a step in the order [cond, uncond].
+    Returns the latents (B, h, w, C).
+
+    mask: optional (B, h, w, 1), 1 = repaint. With it, every step
+    composites against the original re-noised to the next timestep (the
+    clean original after the last): the SDXL-inpaint loop on the base model.
+    `noise` noises the input; `renoise`, required with a mask, re-noises
+    the original."""
+    b = image_latents.shape[0]
+    st = ddim_init(ns, num_steps)
+    n_run = max(1, min(num_steps, int(round(num_steps * strength))))
+    i0 = num_steps - n_run
+    if mask is not None and renoise is None:
+        raise ValueError("sample_img2img with a mask needs renoise")
+    lat = add_noise(ns, image_latents, noise.float(), st.timesteps[i0])
+    ctx = torch.cat([cond_text, uncond_text], dim=0)
+    for i in range(i0, num_steps):
+        t = st.timesteps[i]
+        e_c, e_u = eps_fn(torch.cat([lat, lat], dim=0), t.expand(2 * b), ctx).chunk(2, dim=0)
+        lat = ddim_step(ns, st, i, e_u + guidance_scale * (e_c - e_u), lat)
+        if mask is not None:
+            ren = (add_noise(ns, image_latents, renoise, st.timesteps[i + 1])
+                   if i + 1 < num_steps else image_latents)
+            lat = mask * lat + (1.0 - mask) * ren
     return lat
 
 

@@ -8,7 +8,11 @@ implicit_change is the EditWorld chain (implicit_tool.py:76-235): best of
   2. regenerated inside the mask by `tb.extra["sdxl_inpaint"]`,
   3. refined by `tb.extra["sdxl_img2img"]`,
   4. passed through `tb.extra["canny_consistency"]`,
-and scored by CLIP(target caption) plus 0.5 SSIM(ori, tar). Stages 2-4 are
+and scored by CLIP(target caption) plus 0.5 SSIM(ori, tar). Both stage-2
+inpaints start from the stage-1 `ori` (seeds `seed` and `seed + 1`); stage
+3 refines the target at strength 0.5 and stage 4 takes the new `ori` as its
+IP-Adapter image and the keyword mask. Stages 2-4 are the zoo's
+`install(tb, "sdxl_inpaint" | "sdxl_img2img" | "canny_consistency")`,
 read from `tb.extra` as in the JAX package and skipped where absent.
 
 style_change is one unmasked IP2P edit of the whole frame (the reference
@@ -30,7 +34,10 @@ STEPS, S_TXT, S_IMG = 50, 7.5, 1.2
 def implicit_change(tb: Toolbox, rec: InstructionRecord, image: np.ndarray,
                     rng: np.random.Generator, n_candidates: int = 3) -> EditOutcome:
     """Needs `tb.extra["p2p_pair"](ori_caption, tar_caption, keyword, seed)
-    -> (ori_img, tar_img, keyword_mask)`; `image` is unused."""
+    -> (ori_img, tar_img, keyword_mask)`; takes `sdxl_inpaint(image, mask01,
+    prompt, seed)`, `sdxl_img2img(image, prompt, strength, seed)` and
+    `canny_consistency(image, prompt, seed, ref_image=, mask01=)` from
+    `tb.extra` where present; `image` is unused."""
     p2p_pair = tb.extra.get("p2p_pair")
     inpaint = tb.extra.get("sdxl_inpaint")
     img2img = tb.extra.get("sdxl_img2img")

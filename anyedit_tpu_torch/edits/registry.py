@@ -4,7 +4,7 @@ over the edit types ported so far."""
 from __future__ import annotations
 
 from anyedit_tpu_torch.edits import (
-    action_change, geometry, global_, implicit, local, outpainting, textual,
+    action_change, geometry, global_, implicit, local, outpainting, textual, visual,
 )
 from anyedit_tpu_torch.edits.types import Pipeline
 
@@ -26,6 +26,8 @@ EDIT_PIPELINES: dict[str, Pipeline] = {
     "movement": geometry.resize_movement,
     "relation": geometry.relation_change,
     "outpainting": outpainting.outpainting,
+    "visual_material_transfer": visual.material_transfer,
+    "material_transfer": visual.material_transfer,
 }
 
 

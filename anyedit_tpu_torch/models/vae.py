@@ -33,6 +33,8 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+# The SDXL VAE (`runtime/zoo.py:71`): the SD1.5 layout, scaled by 0.13025
+SDXL_VAE = dataclasses.replace(SD_VAE, scaling_factor=0.13025)
 # The SD3 VAE as the JAX zoo defines it (`runtime/zoo.py:72`): the SD1.5
 # layout with 16 latent channels and SD3's scaling factor. Like the JAX
 # package it keeps quant_conv / post_quant_conv and scales without a shift;

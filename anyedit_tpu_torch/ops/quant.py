@@ -161,6 +161,17 @@ class QuantConv(_Quant):
         return y.permute(0, 3, 1, 2).contiguous()
 
 
+class QuantTokenProj(QuantDense):
+    """W8A8 Linear over the tokens (B, L, C) of one feature map, with one
+    activation scale per sample over (L, C): the arithmetic of a W8A8 1x1
+    conv (the JAX module's projection) on weights held in the Linear layout."""
+
+    def forward(self, x):
+        xs = absmax_scale(x, (1, 2))                   # (B, 1, 1)
+        acc = int8_matmul(quantize_int8(x, xs).reshape(-1, x.shape[-1]), self.weight.t())
+        return self._dequant(acc.reshape(*x.shape[:-1], -1), xs)
+
+
 def make_dense(in_features: int, out_features: int, *, quant: bool,
                bias: bool = True, dtype=torch.bfloat16, device=None) -> nn.Module:
     """nn.Linear or its W8A8 drop-in: the one place the choice lives."""
@@ -175,6 +186,14 @@ def make_conv1x1(in_channels: int, out_channels: int, *, quant: bool,
         return QuantConv(in_channels, out_channels, 1, padding=0, dtype=dtype,
                          device=device)
     return nn.Conv2d(in_channels, out_channels, 1, dtype=dtype, device=device)
+
+
+def make_token_proj(in_features: int, out_features: int, *, quant: bool,
+                    dtype=torch.bfloat16, device=None) -> nn.Module:
+    """A transformer's proj_in / proj_out in the Linear layout (SDXL's
+    `use_linear_projection`): nn.Linear, or `QuantTokenProj`."""
+    cls = QuantTokenProj if quant else nn.Linear
+    return cls(in_features, out_features, dtype=dtype, device=device)
 
 
 def quantize_state_dict(quant_module: nn.Module,

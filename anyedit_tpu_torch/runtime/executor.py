@@ -113,6 +113,8 @@ _FIRST_GROUND: dict[str, tuple[str, str]] = {
     "resize": ("edited_object", "max"), "movement": ("edited_object", "max"),
     "relation": ("edited_object", "max"),
     "outpainting": ("edited_object", "merge"),
+    "visual_material_transfer": ("edited_object", "max"),
+    "material_transfer": ("edited_object", "max"),
 }
 
 # edit types whose pipeline makes exactly one unmasked full-frame ip2p call,

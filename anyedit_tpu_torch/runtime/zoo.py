@@ -1,8 +1,10 @@
-"""The model zoo's grounding, editing, inpainting, pair-synthesis and scorer
-slots (counterpart of the `grounder()`, `ip2p()`, `inpainter()`,
-`sd_inpainter()`, `ultraedit_fn()`, `masactrl_pair_fn()`, `p2p_pair()`,
-`flux_pair_fn()`, `text2img_fn()`, `clip_towers()`, `aesthetic_fn()`,
-`vqa_fn()` and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
+"""The model zoo's grounding, editing, inpainting, pair-synthesis, refine,
+condition and scorer slots (counterpart of the `grounder()`, `ip2p()`,
+`inpainter()`, `sd_inpainter()`, `ultraedit_fn()`, `masactrl_pair_fn()`,
+`p2p_pair()`, `flux_pair_fn()`, `text2img_fn()`, `img2img_fn()`,
+`sdxl_inpaint_fn()`, `canny_consistency_fn()`, `sdxl_material_fn()`,
+`canny_fn()`, `depth_fn()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()`
+and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
 count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
@@ -55,14 +57,30 @@ pooled output, decoded by the Flux VAE; the Flux in W8A8 with
 `quant_diffusion`. Each draws its start noise from `torch.Generator(seed)`
 unless given `noise=`.
 
+The SDXL refine slots run `diffusion/sampling.py::sample_img2img` on the
+refine UNet (`refine_unet`, slot "unet_refine"; W8A8 with
+`quant_diffusion`) at CFG batch 2 with the SDXL conditioning of
+`_xl_cond()` (CLIP-L's and CLIP-bigG's penultimate hidden states, bigG's
+projected pooled output, time ids (s, s, 0, 0, s, s) at the canvas size)
+and the SDXL VAE: `img2img_fn()` (implicit_change's stage 3),
+`sdxl_inpaint_fn()` (stage 2: the mask at latent size above 0.25),
+`canny_consistency_fn()` (stage 4: the canny ControlNet on the image's
+edges, the IP-Adapter on a reference image) and `sdxl_material_fn()`
+(material_transfer: the depth ControlNet, the IP-Adapter on an exemplar,
+the latents outside the mask kept). Each draws its noise (and re-noise)
+from `torch.Generator(seed)` unless given `noise=` (`renoise=`).
+`canny_fn(image_u8)` and `depth_fn()` (Depth-Anything-V2) give the
+condition maps.
+
 The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
 clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
 to the tower's size, ImageNet mean and std, as the JAX zoo), and
 `clip_image.batch(images)` one tower forward for a list; `aesthetic_fn()`
 the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
 EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
-"aesthetic", "vqa"), the SD inpainter ("sd_inpaint") or UltraEdit
-("ultraedit", as `tb.extra["ultraedit"]`) to a Toolbox, and
+"aesthetic", "vqa"), the SD inpainter ("sd_inpaint"), UltraEdit
+("ultraedit", as `tb.extra["ultraedit"]`), the pair synthesizers, the
+refine slots (as `tb.extra[slot]`), "canny" or "depth" to a Toolbox, and
 `toolbox(slots=...)` installs them beside `ground`, `inpaint` and `ip2p`.
 """
 
@@ -79,7 +97,7 @@ import torch.nn.functional as F
 from anyedit_tpu_torch.core.config import CanvasConfig
 from anyedit_tpu_torch.diffusion import flux_sample, ip2p_edit, sample_inpaint, ultraedit_edit
 from anyedit_tpu_torch.diffusion.processors import AttentionStore, mask_from_ca
-from anyedit_tpu_torch.diffusion.sampling import p2p_sample
+from anyedit_tpu_torch.diffusion.sampling import p2p_sample, sample_img2img
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
@@ -92,8 +110,15 @@ from anyedit_tpu_torch.models.clip import (
     CLIPTextEncoder, CLIPTextModel, CLIPVisionConfig, CLIPVisionEncoder,
 )
 from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
+from anyedit_tpu_torch.models.controlnet import ControlNet
+from anyedit_tpu_torch.models.depth import (
+    DEPTH_ANYTHING_L, TINY_DEPTH, DepthAnythingV2, DPTConfig, depth_to_u8,
+)
 from anyedit_tpu_torch.models.flux import FLUX_SCHNELL, TINY_FLUX, Flux, FluxConfig
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
+from anyedit_tpu_torch.models.ip_adapter import (
+    ImageProjection, IPAdapterWeights, cross_attn_sites, ip_adapter_processor,
+)
 from anyedit_tpu_torch.models.lama import LAMA, TINY_LAMA, LamaConfig, LamaGenerator, pad_to_modulo
 from anyedit_tpu_torch.models.mmdit import SD3_ULTRAEDIT, TINY_MMDIT, MMDiT, MMDiTConfig
 from anyedit_tpu_torch.models.sam import (
@@ -102,11 +127,13 @@ from anyedit_tpu_torch.models.sam import (
 from anyedit_tpu_torch.models.swin import TINY_SWIN
 from anyedit_tpu_torch.models.t5 import T5_XXL, TINY_T5, T5Config, T5Encoder
 from anyedit_tpu_torch.models.unet_sd import (
-    SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
+    SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, SDXL_UNET, TINY_UNET, TINY_XL_UNET,
+    UNet2DCondition, UNetConfig,
 )
 from anyedit_tpu_torch.models.vae import (
-    FLUX_VAE, SD3_VAE, SD_VAE, TINY_VAE, AutoencoderKL, VAEConfig,
+    FLUX_VAE, SD3_VAE, SD_VAE, SDXL_VAE, TINY_VAE, AutoencoderKL, VAEConfig,
 )
+from anyedit_tpu_torch.ops.canny import canny, rgb_to_gray
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
@@ -131,7 +158,9 @@ class ZooConfig:
     ip2p_unet: UNetConfig = SD15_IP2P_UNET
     inpaint_unet: UNetConfig = SD15_INPAINT_UNET
     sd_unet: UNetConfig = SD15_UNET            # 4-channel text2img (MasaCtrl)
+    refine_unet: UNetConfig = SDXL_UNET        # img2img / consistency / material
     vae: VAEConfig = SD_VAE
+    sdxl_vae: VAEConfig = SDXL_VAE             # the refine slots' latent codec
     sd3_vae: VAEConfig = SD3_VAE               # UltraEdit's latent codec
     flux_vae: VAEConfig = FLUX_VAE             # Flux's latent codec
     text: CLIPTextConfig = CLIP_L_TEXT
@@ -140,14 +169,16 @@ class ZooConfig:
     flux_text: T5Config = T5_XXL               # SD3's and Flux's T5 text encoder
     mmdit: MMDiTConfig = SD3_ULTRAEDIT
     flux: FluxConfig = FLUX_SCHNELL
+    depth_cfg: DPTConfig = DEPTH_ANYTHING_L    # Depth-Anything-V2 (material_transfer)
     eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
     qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
     # pure-sampling slots: of those the port has the SD inpainter,
-    # UltraEdit's MMDiT and Flux. The attention-surgery slots (MasaCtrl,
-    # P2P) stay bf16: their processors read the raw attention.
+    # UltraEdit's MMDiT, Flux and the SDXL refine UNet (its ControlNets and
+    # IP-Adapter stay float). The attention-surgery slots (MasaCtrl, P2P)
+    # stay bf16: their processors read the raw attention.
     quant_ip2p: bool = False
     quant_diffusion: bool = False
     # records per batch-3n UNet call of `ip2p().batch` (the chunk-mode
@@ -159,8 +190,8 @@ def tiny_zoo_config() -> ZooConfig:
     """The grounding, editing, inpainting and scorer fields of the JAX
     package's hermetic tiny config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
     canvas, every box kept above a score of 0. Two differences: every tower
-    is fp32 (the JAX config leaves the tiny Swin, BERT, Q-Former and T5 in
-    bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
+    is fp32 (the JAX config leaves the tiny Swin, BERT, Q-Former, T5 and
+    DINOv2 in bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
     index the table (at TINY_BERT's 128 they fall outside it, which
     `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
@@ -176,7 +207,10 @@ def tiny_zoo_config() -> ZooConfig:
         ip2p_unet=dataclasses.replace(TINY_UNET, in_channels=8, **f32),
         inpaint_unet=dataclasses.replace(TINY_UNET, in_channels=9, **f32),
         sd_unet=dataclasses.replace(TINY_UNET, **f32),
+        # the SDXL context is CLIP-L (32) + CLIP-G (16) = 48 wide
+        refine_unet=dataclasses.replace(TINY_XL_UNET, context_dim=48, **f32),
         vae=vae,
+        sdxl_vae=vae,
         sd3_vae=vae,
         flux_vae=vae,
         text=dataclasses.replace(TINY_TEXT, vocab_size=30522, max_len=77, **f32),
@@ -188,6 +222,8 @@ def tiny_zoo_config() -> ZooConfig:
         mmdit=dataclasses.replace(TINY_MMDIT, in_channels=9, out_channels=4, context_dim=32,
                                   pooled_dim=48, max_hw=16, **f32),
         flux=dataclasses.replace(TINY_FLUX, context_dim=32, pooled_dim=32, **f32),
+        depth_cfg=dataclasses.replace(TINY_DEPTH, backbone=dataclasses.replace(
+            TINY_DEPTH.backbone, **f32), **f32),
         eva=dataclasses.replace(TINY_VISION, **f32),
         qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
                                     **f32),
@@ -210,8 +246,10 @@ class ModelZoo:
     package's `load_params` returns them) under the JAX slot names
     "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "unet_sd", "vae", "clip_text",
     "clip_vision", "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit",
-    "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux" and "flux_vae"; a missing slot
-    gets a seeded init. Tokens come from the hash tokenizers the JAX zoo uses
+    "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux", "flux_vae", "unet_refine",
+    "sdxl_vae", "controlnet_canny", "controlnet_depth", "ip_proj", "ip_adapter" and
+    "depth"; a missing slot gets a seeded init (a ControlNet's zero convs and
+    hint projection at zero, as in the JAX zoo). Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
 
     def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
@@ -295,12 +333,12 @@ class ModelZoo:
         return lambda text: t5(torch.from_numpy(self._t5_ids(text, 77)).to(self.device))
 
     def _vae_cfg(self, slot: str) -> VAEConfig:
-        return {"vae": self.cfg.vae, "sd3_vae": self.cfg.sd3_vae,
-                "flux_vae": self.cfg.flux_vae}[slot]
+        return {"vae": self.cfg.vae, "sdxl_vae": self.cfg.sdxl_vae,
+                "sd3_vae": self.cfg.sd3_vae, "flux_vae": self.cfg.flux_vae}[slot]
 
     def _vae_named(self, slot: str) -> AutoencoderKL:
-        """The latent codec of a diffusion slot: "vae" (SD1.5), "sd3_vae" or
-        "flux_vae"."""
+        """The latent codec of a diffusion slot: "vae" (SD1.5), "sdxl_vae",
+        "sd3_vae" or "flux_vae"."""
         vcfg = self._vae_cfg(slot)
         return self._get(slot, lambda: self._load(
             AutoencoderKL(vcfg, device=self.device), slot,
@@ -343,7 +381,8 @@ class ModelZoo:
 
     def _unet(self, slot: str, ucfg: UNetConfig, quant: bool) -> UNet2DCondition:
         return self._backbone(UNet2DCondition, ucfg, slot,
-                              lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels)),
+                              lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels),
+                                                               ucfg.use_linear_projection),
                               quant)
 
     def _mmdit(self) -> MMDiT:
@@ -620,10 +659,20 @@ class ModelZoo:
             tb.extra["flux_pair"] = self.flux_pair_fn()
         elif slot == "text2img":
             tb.text2img = self.text2img_fn()
+        elif slot in ("sdxl_img2img", "sdxl_inpaint", "canny_consistency", "sdxl_material"):
+            tb.extra[slot] = {"sdxl_img2img": self.img2img_fn,
+                              "sdxl_inpaint": self.sdxl_inpaint_fn,
+                              "canny_consistency": self.canny_consistency_fn,
+                              "sdxl_material": self.sdxl_material_fn}[slot]()
+        elif slot == "canny":
+            tb.canny = self.canny_fn
+        elif slot == "depth":
+            tb.depth = self.depth_fn()
         else:
             raise KeyError(f"unknown toolbox slot {slot!r} (ported: 'sd_inpaint', 'clip', "
                            "'aesthetic', 'vqa', 'ultraedit', 'masactrl', 'p2p_pair', "
-                           "'flux_pair', 'text2img')")
+                           "'flux_pair', 'text2img', 'sdxl_img2img', 'sdxl_inpaint', "
+                           "'canny_consistency', 'sdxl_material', 'canny', 'depth')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
         """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
@@ -974,6 +1023,259 @@ class ModelZoo:
         size (local add's source regeneration, local_pipeline_tool.py:125-132)."""
         sample = self._flux_sampler()
         return lambda prompt, seed=0: sample(prompt, seed)
+
+    # ---- SDXL refine stack (implicit_change stages 2-4, material_transfer) --
+    def _text_xl(self):
+        """text -> (context (1, L, L_hidden + G_hidden), pooled (1, G_proj)):
+        the penultimate hidden states (no final LN) of CLIP-L and of
+        OpenCLIP-bigG, concatenated, and bigG's projected pooled output."""
+        raw_l = self._text_raw("clip_text", self.cfg.text)
+        raw_g = self._text_raw("clip_text_g", self.cfg.text_g)
+
+        def encode(text: str):
+            _, _, hl = raw_l(text)
+            _, pg, hg = raw_g(text)
+            return torch.cat([hl, hg], dim=-1), pg
+        return encode
+
+    def _xl_cond(self, prompt: str, negative: str = ""):
+        """(context2 (2, L, D) bf16, pooled2 (2, P), time_ids2 (2, 6)): the
+        [cond, uncond] rows of the refine UNet. SDXL's time ids are (size,
+        size, 0, 0, size, size) at the canvas size."""
+        text_xl = self._text_xl()
+        (hc, pc), (hu, pu) = text_xl(prompt), text_xl(negative)
+        size = float(self.cfg.canvas.edit_size)
+        tid = torch.tensor([[size, size, 0.0, 0.0, size, size]], device=self.device)
+        return (torch.cat([hc, hu]).to(torch.bfloat16), torch.cat([pc, pu]),
+                torch.cat([tid, tid]))
+
+    def _refine_unet(self):
+        """(refine UNet, noise_schedule), slot "unet_refine"; W8A8 with
+        `quant_diffusion`, as in the JAX zoo. The refine slots feed it SDXL's
+        micro-conditioning, so its config must take a pooled text and 6 time
+        ids."""
+        c = self.cfg
+        if not c.refine_unet.addition_embed_dim or c.refine_unet.addition_time_dim != 6:
+            raise ValueError("refine_unet needs SDXL micro-conditioning "
+                             "(addition_embed_dim > 0, addition_time_dim 6)")
+        return self._get("refine_unet", lambda: (
+            self._unet("unet_refine", c.refine_unet, c.quant_diffusion),
+            make_noise_schedule(device=self.device)))
+
+    def _control_unet(self, slot: str) -> ControlNet:
+        """A float ControlNet on the refine UNet config with a 3-channel
+        hint, slot "controlnet_canny" or "controlnet_depth"."""
+        ucfg = self.cfg.refine_unet
+        return self._get(slot, lambda: self._load(
+            ControlNet(ucfg, 3, device=self.device), slot,
+            lambda t: bridge.controlnet_state_dict(t, len(ucfg.block_channels),
+                                                   ucfg.use_linear_projection)))
+
+    def _ip_modules(self) -> tuple[ImageProjection, IPAdapterWeights]:
+        """The IP-Adapter on the refine UNet: the ImageProjection (4 tokens,
+        slot "ip_proj") and every cross-attention site's K/V projection
+        (slot "ip_adapter"), fp32."""
+        def build():
+            c = self.cfg
+            names, dims = cross_attn_sites(c.refine_unet)
+            ctx = c.refine_unet.context_dim
+            proj = self._load(ImageProjection(c.vision.proj_dim, 4, ctx, device=self.device),
+                              "ip_proj", bridge.ip_proj_state_dict)
+            ipw = self._load(IPAdapterWeights(names, dims, ctx, device=self.device),
+                             "ip_adapter", lambda t: bridge.ip_adapter_state_dict(t, names))
+            return proj, ipw
+        return self._get("ip_modules", build)
+
+    def _ip_adapter(self):
+        """`site_kv(image_u8, uncond=False) -> {site: (k, v)}`: the
+        L2-normed CLIP-L image embedding (`clip_towers`, as the JAX zoo feeds
+        it: ROADMAP queue 3) through `_ip_modules`; `uncond` zeroes the
+        tokens."""
+        def build():
+            proj, ipw = self._ip_modules()
+            clip_image, _ = self.clip_towers()
+
+            def site_kv(image_u8, uncond: bool = False):
+                tokens = proj(clip_image(image_u8))
+                return ipw(torch.zeros_like(tokens) if uncond else tokens)
+            return site_kv
+        return self._get("ip_adapter", build)
+
+    def _ip_processor(self, image_u8):
+        """The IP-Adapter processor over `image_u8`'s [cond, uncond] K/V."""
+        site_kv = self._ip_adapter()
+        kv_c, kv_u = site_kv(image_u8), site_kv(image_u8, uncond=True)
+        return ip_adapter_processor({n: (torch.cat([kc, kv_u[n][0]]), torch.cat([vc, kv_u[n][1]]))
+                                     for n, (kc, vc) in kv_c.items()})
+
+    def _refine_eps(self, unet, pooled2, tid2, cn=None, hint2=None, processor=None):
+        """The refine loop's eps_fn over a batch-2 call: the UNet with the
+        micro-conditioning, with a ControlNet's residuals on `hint2` and a
+        processor where given."""
+        def eps_fn(x, t, ctx):
+            res = mid = None
+            if cn is not None:
+                res, mid = cn(x, t, ctx, hint2, pooled_text=pooled2, time_ids=tid2)
+            return unet(x, t, ctx, processor=processor, controlnet_residuals=res,
+                        controlnet_mid=mid, pooled_text=pooled2, time_ids=tid2)
+        return eps_fn
+
+    def _hint2(self, map_u8) -> torch.Tensor:
+        """A (H, W) uint8 condition map -> the ControlNet hint (2, S, S, 3)
+        at S = 8 x the latent size (the hint encoder's three stride-2 convs):
+        bilinear, / 255, tiled to 3 channels and the CFG rows."""
+        size = self.cfg.canvas.edit_size // self.cfg.canvas.latent_down * 8
+        m = torch.as_tensor(np.asarray(map_u8), device=self.device).float()[..., None]
+        return (resize_image(m, size, size, "bilinear") / 255.0)[None].expand(2, -1, -1, 3)
+
+    def img2img_fn(self):
+        """`img2img(image_u8, prompt, strength=0.5, seed=0, steps=30,
+        scale=7.5, noise=None) -> image_u8`: SDEdit on the refine UNet
+        (implicit_tool.py:129-148), `strength` rounded to 3 places; the
+        noise drawn from `torch.Generator(seed)` unless given."""
+        def build():
+            unet, ns = self._refine_unet()
+            self._vae_named("sdxl_vae")
+
+            @torch.inference_mode()
+            def img2img(image_u8, prompt: str, strength: float = 0.5, seed: int = 0,
+                        steps: int = 30, scale: float = 7.5,
+                        noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([image_u8], "sdxl_vae")
+                ctx2, pooled2, tid2 = self._xl_cond(prompt)
+                out = sample_img2img(self._refine_eps(unet, pooled2, tid2), ns, lat, ctx2[:1],
+                                     ctx2[1:], num_steps=steps,
+                                     strength=round(float(strength), 3), guidance_scale=scale,
+                                     noise=self._start_noise(lat.shape, seed, noise))
+                return self._from_latents(out, [image_u8.shape[:2]], "sdxl_vae")[0]
+            return img2img
+        return self._get("img2img", build)
+
+    def _seeded_pair(self, shape, seed: int, noise, renoise):
+        """(noise, renoise): given, or the first and second draws of
+        `torch.Generator(seed)` on the device."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        drawn = [torch.randn(shape, generator=gen, device=self.device) for _ in range(2)]
+        return (drawn[0] if noise is None else noise.to(self.device).float(),
+                drawn[1] if renoise is None else renoise.to(self.device).float())
+
+    def sdxl_inpaint_fn(self):
+        """`inpaint(image_u8, mask01, prompt, seed=0, steps=30, strength=0.98,
+        scale=7.5, noise=None, renoise=None) -> image_u8`: implicit_change's
+        stage 2 (implicit_tool.py:96-127), the refine UNet's masked img2img
+        (the mask at latent size above 0.25): repaint inside the mask, the
+        original re-noised outside it after every step."""
+        def build():
+            unet, ns = self._refine_unet()
+            self._vae_named("sdxl_vae")
+
+            @torch.inference_mode()
+            def inpaint(image_u8, mask01, prompt: str, seed: int = 0, steps: int = 30,
+                        strength: float = 0.98, scale: float = 7.5,
+                        noise: Optional[torch.Tensor] = None,
+                        renoise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([image_u8], "sdxl_vae")
+                noise, renoise = self._seeded_pair(lat.shape, seed, noise, renoise)
+                ctx2, pooled2, tid2 = self._xl_cond(prompt)
+                out = sample_img2img(self._refine_eps(unet, pooled2, tid2), ns, lat, ctx2[:1],
+                                     ctx2[1:], num_steps=steps,
+                                     strength=round(float(strength), 3), guidance_scale=scale,
+                                     mask=self._latent_mask(mask01, 0.25)[None], noise=noise,
+                                     renoise=renoise)
+                return self._from_latents(out, [image_u8.shape[:2]], "sdxl_vae")[0]
+            return inpaint
+        return self._get("sdxl_inpaint", build)
+
+    def canny_fn(self, image_u8) -> np.ndarray:
+        """image_u8 -> (H, W) uint8 {0, 255} Canny edges, on the zoo's device."""
+        img = torch.as_tensor(np.asarray(image_u8), device=self.device)
+        return canny(rgb_to_gray(img)).cpu().numpy()
+
+    def canny_consistency_fn(self):
+        """`consistency(image_u8, prompt, seed=0, steps=30, strength=0.6,
+        scale=7.5, ref_image=None, mask01=None, noise=None, renoise=None) ->
+        image_u8`: implicit_change's stage 4 (implicit_tool.py:174-235),
+        img2img on the refine UNet with the canny ControlNet on the image's
+        edges and the IP-Adapter on `ref_image` (default the image itself);
+        with `mask01`, masked as `sdxl_inpaint`."""
+        def build():
+            unet, ns = self._refine_unet()
+            cn = self._control_unet("controlnet_canny")
+            self._ip_adapter()
+            self._vae_named("sdxl_vae")
+
+            @torch.inference_mode()
+            def consistency(image_u8, prompt: str, seed: int = 0, steps: int = 30,
+                            strength: float = 0.6, scale: float = 7.5, ref_image=None,
+                            mask01=None, noise: Optional[torch.Tensor] = None,
+                            renoise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([image_u8], "sdxl_vae")
+                noise, renoise = self._seeded_pair(lat.shape, seed, noise, renoise)
+                m = None if mask01 is None else self._latent_mask(mask01, 0.25)[None]
+                ctx2, pooled2, tid2 = self._xl_cond(prompt)
+                proc = self._ip_processor(image_u8 if ref_image is None else ref_image)
+                eps = self._refine_eps(unet, pooled2, tid2, cn, self._hint2(
+                    self.canny_fn(image_u8)), proc)
+                out = sample_img2img(eps, ns, lat, ctx2[:1], ctx2[1:], num_steps=steps,
+                                     strength=round(float(strength), 3), guidance_scale=scale,
+                                     mask=m, noise=noise, renoise=renoise)
+                return self._from_latents(out, [image_u8.shape[:2]], "sdxl_vae")[0]
+            return consistency
+        return self._get("canny_consistency", build)
+
+    def sdxl_material_fn(self):
+        """`material(init_u8, mask, depth_u8, exemplar_u8, seed=0, steps=30,
+        strength=0.9, scale=7.5, noise=None) -> image_u8`: material_transfer
+        (material_transfer_tool.py:190-198), img2img of the grey-masked
+        init on the refine UNet with the depth ControlNet and the
+        IP-Adapter on the exemplar, prompt "high quality, detailed material
+        texture"; the latents outside the mask (at latent size above 0.25)
+        stay the init's."""
+        def build():
+            unet, ns = self._refine_unet()
+            cn = self._control_unet("controlnet_depth")
+            self._ip_adapter()
+            self._vae_named("sdxl_vae")
+
+            @torch.inference_mode()
+            def material(init_u8, mask, depth_u8, exemplar_u8, seed: int = 0, steps: int = 30,
+                         strength: float = 0.9, scale: float = 7.5,
+                         noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                lat = self._to_latents([init_u8], "sdxl_vae")
+                m = self._latent_mask(mask, 0.25)[None]
+                ctx2, pooled2, tid2 = self._xl_cond("high quality, detailed material texture")
+                eps = self._refine_eps(unet, pooled2, tid2, cn, self._hint2(depth_u8),
+                                       self._ip_processor(exemplar_u8))
+                out = sample_img2img(eps, ns, lat, ctx2[:1], ctx2[1:], num_steps=steps,
+                                     strength=round(float(strength), 3), guidance_scale=scale,
+                                     noise=self._start_noise(lat.shape, seed, noise))
+                return self._from_latents(m * out + (1.0 - m) * lat, [init_u8.shape[:2]],
+                                          "sdxl_vae")[0]
+            return material
+        return self._get("sdxl_material", build)
+
+    def _depth_model(self) -> DepthAnythingV2:
+        return self._get("depth_model", lambda: self._load(
+            DepthAnythingV2(self.cfg.depth_cfg, device=self.device), "depth",
+            bridge.depth_state_dict))
+
+    def depth_fn(self):
+        """`depth(image_u8) -> (H, W) uint8`: Depth-Anything-V2 on the image
+        resized bilinear to its input size (ImageNet mean and std), the
+        relative depth min-max scaled to 0-255, resized bilinear back and
+        truncated to uint8."""
+        def build():
+            model = self._depth_model()
+            s = self.cfg.depth_cfg.backbone.img_size
+
+            @torch.inference_mode()
+            def depth(image_u8) -> np.ndarray:
+                h, w = image_u8.shape[:2]
+                d8 = depth_to_u8(model(self._pixels(image_u8, s)))[0]
+                return to_u8(resize_image(d8[..., None].float(), h, w, "bilinear")[..., 0]
+                             ).cpu().numpy()
+            return depth
+        return self._get("depth", build)
 
 
 @contextlib.contextmanager

@@ -163,14 +163,22 @@ def _strip(path: tuple[str, ...]) -> list[str]:
 
 # ---- SD UNet (convert.py `_unet_key`) ---------------------------------------
 
-def _unet_key(path: tuple[str, ...], n_levels: int) -> tuple[str, str]:
+# a JAX 1x1 conv kernel (1, 1, I, O) <-> a Linear weight (O, I): SDXL's
+# proj_in / proj_out (convert.py `t_lin_as_conv11`)
+_CONV11_LIN = (lambda w: np.transpose(w[0, 0]), lambda w: np.transpose(w)[None, None])
+
+
+def _unet_key(path: tuple[str, ...], n_levels: int,
+              linear_proj: bool = False) -> tuple[str, str]:
     p = _strip(path)
     name = p[0]
     conv, lin, norm = _kinds(p[-1])
     top = {"conv_in": conv("conv_in"), "conv_out": conv("conv_out"),
            "norm_out": norm("conv_norm_out"),
            "time_fc1": lin("time_embedding.linear_1"),
-           "time_fc2": lin("time_embedding.linear_2")}
+           "time_fc2": lin("time_embedding.linear_2"),
+           "add_fc1": lin("add_embedding.linear_1"),
+           "add_fc2": lin("add_embedding.linear_2")}
     if name in top:
         return top[name]
 
@@ -185,7 +193,8 @@ def _unet_key(path: tuple[str, ...], n_levels: int) -> tuple[str, str]:
         if sub == "norm":
             return norm(f"{base}.norm")
         if sub in ("proj_in", "proj_out"):
-            return conv(f"{base}.{sub}")
+            key, tf = conv(f"{base}.{sub}")
+            return (key, _CONV11_LIN) if linear_proj and tf == _CONV else (key, tf)
         tb = f"{base}.transformer_blocks.{sub.split('_')[1]}"
         s2 = p[2]
         if s2 in ("norm1", "norm2", "norm3"):
@@ -218,17 +227,158 @@ def _unet_key(path: tuple[str, ...], n_levels: int) -> tuple[str, str]:
     raise KeyError(f"unmapped UNet param {'/'.join(path)}")
 
 
-def unet_state_dict(tree: Mapping[str, Any], n_levels: int = 4):
+def unet_state_dict(tree: Mapping[str, Any], n_levels: int = 4, linear_proj: bool = False):
     """Flax `UNet2DCondition` params (float or W8A8) -> the port's
-    `UNet2DCondition` state dict."""
-    return _bridge(tree, lambda p: _unet_key(p, n_levels))
+    `UNet2DCondition` state dict. `linear_proj`: proj_in / proj_out in the
+    Linear layout (`UNetConfig.use_linear_projection`, SDXL), as
+    `convert_unet_sdxl` reads them; SDXL's `add_fc1` / `add_fc2` map to
+    `add_embedding.linear_1` / `linear_2`."""
+    return _bridge(tree, lambda p: _unet_key(p, n_levels, linear_proj))
 
 
 def unet_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
-              n_levels: int = 4) -> dict[str, Any]:
+              n_levels: int = 4, linear_proj: bool = False) -> dict[str, Any]:
     """The port's UNet state dict -> a Flax tree of `like`'s structure
     (numpy leaves; int8 kernels stay int8)."""
-    return _to_tree(like, sd, lambda p: _unet_key(p, n_levels))
+    return _to_tree(like, sd, lambda p: _unet_key(p, n_levels, linear_proj))
+
+
+# ---- ControlNet (diffusers ControlNetModel names) ---------------------------
+
+def _controlnet_key(path: tuple[str, ...], n_levels: int, linear_proj: bool, mid: int):
+    """The UNet's names for the shared trunk; the hint encoder's convs
+    (`conv_0` .. `conv_6`, `proj`) as `controlnet_cond_embedding.conv_in`,
+    `.blocks.{i - 1}` and `.conv_out`; `zero_{i}` as
+    `controlnet_down_blocks.{i}`, the last (`zero_{mid}`) as
+    `controlnet_mid_block`."""
+    p = _strip(path)
+    conv, _, _ = _kinds(p[-1])
+    if p[0] == "hint_encoder":
+        m = re.match(r"conv_(\d+)$", p[1])
+        emb = "controlnet_cond_embedding"
+        if m is None:
+            return conv(f"{emb}.conv_out")
+        i = int(m[1])
+        return conv(f"{emb}.conv_in" if i == 0 else f"{emb}.blocks.{i - 1}")
+    if m := re.match(r"zero_(\d+)$", p[0]):
+        i = int(m[1])
+        return conv("controlnet_mid_block" if i == mid else f"controlnet_down_blocks.{i}")
+    return _unet_key(path, n_levels, linear_proj)
+
+
+def _controlnet_fn(tree: Mapping[str, Any], n_levels: int, linear_proj: bool):
+    mid = max(int(k.split("_")[1]) for k in tree.get("params", tree) if k.startswith("zero_"))
+    return lambda p: _controlnet_key(p, n_levels, linear_proj, mid)
+
+
+def controlnet_state_dict(tree: Mapping[str, Any], n_levels: int = 3,
+                          linear_proj: bool = True):
+    """Flax `ControlNet` params -> the port's `ControlNet` state dict
+    (diffusers ControlNetModel keys; SDXL's Linear proj_in / proj_out)."""
+    return _bridge(tree, _controlnet_fn(tree, n_levels, linear_proj))
+
+
+def controlnet_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
+                    n_levels: int = 3, linear_proj: bool = True) -> dict[str, Any]:
+    """The port's ControlNet state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _controlnet_fn(like, n_levels, linear_proj))
+
+
+# ---- IP-Adapter (convert.py `convert_image_projection`,
+#      `convert_ip_adapter_weights`) --------------------------------------------
+
+def _ip_proj_key(path: tuple[str, ...]):
+    p = _strip(path)
+    _, lin, norm = _kinds(p[-1])
+    return {"proj": lin("proj"), "norm": norm("norm")}[p[0]]
+
+
+def ip_proj_state_dict(tree: Mapping[str, Any]):
+    """Flax `ImageProjection` params -> the port's `ImageProjection` state
+    dict (the checkpoint's `image_proj` group: proj, norm)."""
+    return _bridge(tree, _ip_proj_key)
+
+
+def ip_proj_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _ip_proj_key)
+
+
+def _ip_adapter_fn(site_names: tuple[str, ...]):
+    """`{site}_k` / `{site}_v` (dots as "__") of the i-th site ->
+    `{2 i + 1}.to_k_ip.weight` / `.to_v_ip.weight` (the checkpoint's
+    `ip_adapter` group, keyed by the diffusers attention-processor index)."""
+    order = {name.replace(".", "__"): i for i, name in enumerate(site_names)}
+
+    def key(path):
+        safe, kv = _strip(path)[0].rsplit("_", 1)
+        return f"{2 * order[safe] + 1}.to_{kv}_ip.weight", _LINEAR
+    return key
+
+
+def ip_adapter_state_dict(tree: Mapping[str, Any], site_names: tuple[str, ...]):
+    """Flax `IPAdapterWeights` params -> the port's `IPAdapterWeights` state dict."""
+    return _bridge(tree, _ip_adapter_fn(site_names))
+
+
+def ip_adapter_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
+                    site_names: tuple[str, ...]) -> dict[str, Any]:
+    return _to_tree(like, sd, _ip_adapter_fn(site_names))
+
+
+# ---- Depth-Anything-V2 (convert.py `_da2_key`) ------------------------------
+
+_DINO_BLOCK = {"ln1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "ln2": "norm2",
+               "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _depth_key(path: tuple[str, ...]):
+    """The official checkpoint's names: the DINOv2 backbone under
+    `pretrained.` (fused qkv, `ls{1,2}.gamma`), the DPT head under
+    `depth_head.`; its 4x / 2x transposed convs (JAX (kH, kW, O, I) <->
+    torch (I, O, kH, kW), `t_convT4`) take the conv permutation."""
+    p = _strip(path)
+    conv, lin, norm = _kinds(p[-1])
+    if p[0] == "backbone":
+        b, name = "pretrained", p[1]
+        top = {"patch_embed": lambda: conv(f"{b}.patch_embed.proj"),
+               "cls": lambda: (f"{b}.cls_token", _LEAD2),
+               "pos": lambda: (f"{b}.pos_embed", _LEAD),
+               "ln_final": lambda: norm(f"{b}.norm")}
+        if name in top:
+            return top[name]()
+        if m := re.match(r"block_(\d+)$", name):
+            lb, sub = f"{b}.blocks.{m[1]}", p[2]
+            if sub in ("ls1", "ls2"):
+                return f"{lb}.{sub}.gamma", _ID
+            return (norm if sub.startswith("ln") else lin)(f"{lb}.{_DINO_BLOCK[sub]}")
+    elif p[0] == "head":
+        h, name = "depth_head", p[1]
+        if m := re.match(r"proj_(\d)$", name):
+            return conv(f"{h}.projects.{m[1]}")
+        if m := re.match(r"resize_(\d)$", name):
+            return conv(f"{h}.resize_layers.{m[1]}")
+        if m := re.match(r"layer(\d)_rn$", name):
+            return conv(f"{h}.scratch.layer{m[1]}_rn")
+        if m := re.match(r"refinenet(\d)_(rcu1|rcu2|out)$", name):
+            rb = f"{h}.scratch.refinenet{m[1]}"
+            if m[2] == "out":
+                return conv(f"{rb}.out_conv")
+            return conv(f"{rb}.resConfUnit{m[2][-1]}.{p[2]}")
+        out = {"out1": "output_conv1", "out2": "output_conv2.0", "out3": "output_conv2.2"}
+        if name in out:
+            return conv(f"{h}.scratch.{out[name]}")
+    raise KeyError(f"unmapped DepthAnything param {'/'.join(path)}")
+
+
+def depth_state_dict(tree: Mapping[str, Any]):
+    """Flax `DepthAnythingV2` params -> the port's `DepthAnythingV2` state
+    dict (the official Depth-Anything-V2 names that `convert_depth_anything`
+    reads)."""
+    return _bridge(tree, _depth_key)
+
+
+def depth_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _depth_key)
 
 
 # ---- VAE (convert.py `_vae_key`) --------------------------------------------

@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: every path that runs a hand
 kernel, the scorers, one record through the factory executor, the
 inpainting, geometry and outpainting edits, one chunk through the
-executor's chunk mode, one SD3-UltraEdit record, and one record of each
-caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux).
+executor's chunk mode, one SD3-UltraEdit record, one record of each
+caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux), and the SDXL
+refine stack (implicit_change with all four stages, material_transfer).
 
     python3 chip_smoke.py
 
@@ -172,6 +173,27 @@ own (the production `ZooConfig`, freed after):
      at batch 2, the Flux VAE decode at batch 1), each row with the
      launches at its shape in each path's run; the K1 row carries
      `launches_masactrl`, `launches_implicit` and `launches_flux` (0 all).
+After `synth reference`, `sdxl reference` holds the tiny refine slots
+(img2img, sdxl_inpaint, canny_consistency with the IP-Adapter, sdxl_material,
+depth; the ControlNets' zero convs drawn live, `live_zero_convs_`) in bf16
+on the card against fp32 on the CPU, each within twice the CPU's own bf16
+distance. After phase 19, on a zoo of its own (the production `ZooConfig`
+at box_threshold 0.0, freed after):
+ 20. sdxl: SDXL_UNET, the SDXL VAE, CLIP-L, CLIP-bigG, CLIP-L vision, the
+     canny and depth ControlNets (zero convs live), the IP-Adapter,
+     DEPTH_ANYTHING_L and the grounder, seeded at published widths; one
+     implicit_change record with all four stages installed through
+     `FactoryExecutor` (gates open): each stage slot called as
+     SDXL_STAGE_CALLS says, K1 exactly SDXL_IMPLICIT_K1 (2,406); one 480x640
+     material_transfer record (a seeded exemplar through
+     `tb.extra["load_visual"]`): success, K1 exactly SDXL_MATERIAL_K1 (108);
+     K2 tallied by shape in both; the SDXL UNet call at batch 2, plain and
+     with the canny ControlNet and the IP-Adapter, in ms beside
+     `sdxl_bound_ms`; the peak GiB; then a W8A8 refine UNet
+     (`quant_diffusion`) against the bf16 call (cosine > 0.95). The K1 row
+     at (20, 1024, 64) carries both records' launches; K2 gets a row at each
+     shape these paths launched it that no earlier row holds
+     (`new_k2_rows`), and an earlier row gains their launches.
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -245,7 +267,8 @@ BUCKET_TYPES = ("color_alter",) * 4
 # UNet at 2 CFG rows).
 SLICE_K1 = [((48, 4096, 40), "chunk"), ((48, 1024, 80), "chunk"),
             ((96, 4096, 40), "bucket"), ((96, 1024, 80), "bucket"),
-            ((16, 4096, 40), "sd"), ((16, 1024, 80), "sd")]
+            ((16, 4096, 40), "sd"), ((16, 1024, 80), "sd"),
+            ((20, 1024, 64), "sdxl_implicit")]
 # K2 in one SD3 VAE encode and decode of a 512 px canvas at batch 1, bf16
 # (52 launches: 22 in the encoder, 30 in the decoder; without SiLU only at
 # the mid-block attention's norm)
@@ -270,7 +293,10 @@ PATHS = {"chunk": "chunk of 4 (2 color_alter edits batched: the UNet at batch 6;
          "geometry": "geometry records (resize, movement, relation, outpainting: "
                      "GroundingDINO at batch 1)",
          "ultraedit": "appearance_alter record through UltraEdit (the SD3 VAE's encode "
-                      "and decode at batch 1)"}
+                      "and decode at batch 1)",
+         "sdxl_implicit": "implicit_change record with all four stages (the SDXL UNet's "
+                          "and the ControlNet's level-1 self-attention at batch 2: 10 x 64 "
+                          "heads of 1,024 tokens)"}
 K2_TALLY_PATHS = ("geometry", "ultraedit")
 # The geometry records (resize, movement, relation, outpainting) and their
 # two drawn objects (xyxy in a 480x640 image): the edited one covers 15.6 %
@@ -1910,7 +1936,8 @@ def synth_executor(tb, records, img, grounding_batch: int = 0):
             pay = line["payload"]
             if line["status"] == "success":
                 edited = decode_png(Path(pay["edited_file"]).read_bytes())
-                source = decode_png(Path(pay["input_file"]).read_bytes())
+                source = (decode_png(Path(pay["input_file"]).read_bytes())
+                          if "input_file" in pay else None)
                 line["frames"] = (source, edited)
     return lines, seconds, launches, dict(tally)
 
@@ -2081,7 +2108,7 @@ def flux_w8a8(dev, args, out):
 def synth_k2_rows(dev, tallies: dict) -> list:
     """K2 at every (shape, SiLU) the synthesized paths launched it (bf16
     only), held against its plain version with `check_kernels`' bounds:
-    [(tag, row, first path, {path: launches at the shape})]."""
+    [(tag, row, first path, {path: launches at the shape}, (shape, silu))]."""
     from anyedit_tpu_torch.ops import kernel_check as kc
 
     by_shape: dict = {}
@@ -2094,8 +2121,333 @@ def synth_k2_rows(dev, tallies: dict) -> list:
         tag = f"{shape} {'silu' if silu else 'plain'}"
         r = kc.check_group_norm(shape, silu, dev, iters=5 if np.prod(shape) >= 2 ** 24 else 10)
         report_k2(tag, r)
-        rows.append((tag, r, next(iter(per_path)), per_path))
+        rows.append((tag, r, next(iter(per_path)), per_path, (shape, silu)))
     return rows
+
+# ---- the SDXL refine stack -------------------------------------------------------
+# implicit_change's stage slots, called per record: 3 candidates x (2
+# inpaints, 1 img2img, 1 consistency pass)
+SDXL_STAGE_CALLS = {"sdxl_inpaint": 6, "sdxl_img2img": 3, "canny_consistency": 3}
+# K1 at (20, 1024, 64): the SDXL UNet launches it at its 10 level-1
+# self-attention sites (10 heads of 64 over 32 x 32 latents at batch 2) and
+# the ControlNet at its 4; under the IP-Adapter processor the UNet takes sdpa.
+# A candidate: 2 inpaints of round(30 x 0.98) = 29 UNet calls, an img2img of
+# 15, a consistency pass of 18 ControlNet calls.
+SDXL_IMPLICIT_K1 = 3 * ((2 * 29 + 15) * 10 + 18 * 4)     # 2,406
+SDXL_MATERIAL_K1 = round(30 * 0.9) * 4                     # 108: the ControlNet's
+MATERIAL_RECORD = {"edit": "make the car out of brushed copper", "edited object": "car",
+                   "input": "a car parked on a street",
+                   "output": "a brushed copper car parked on a street",
+                   "visual_input": "copper.png"}
+SDXL_PATHS = {"sdxl_implicit": ("implicit_change", "implicit_change record with all four "
+                                "stages (the SDXL UNet and the ControlNet at batch 2, the "
+                                "SDXL VAE at 512 px)"),
+              "sdxl_material": ("material_transfer", "material_transfer record (the SDXL "
+                                "UNet and the depth ControlNet at batch 2, the SDXL VAE at "
+                                "batch 1, one grounding)")}
+
+
+def live_zero_convs_(cn, seed: int):
+    """Draw a ControlNet's zero convs and hint projection (zero at the
+    seeded init, as in the JAX package, where an untrained ControlNet is an
+    exact no-op) from N(0, 1/fan_in), seeded, in place, on the weights'
+    device, so that its residuals reach the UNet."""
+    import torch
+    gen = None
+    with torch.no_grad():
+        for name, mod in cn.named_modules():
+            if name.startswith("controlnet_down_blocks.") or name in (
+                    "controlnet_mid_block", "controlnet_cond_embedding.conv_out"):
+                w = mod.weight
+                gen = gen or torch.Generator(device=w.device).manual_seed(seed)
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                        / w[0].numel() ** 0.5)
+    return cn
+
+
+def check_sdxl_reference(dev):
+    """The tiny refine slots in bf16 on the card against fp32 on the CPU,
+    with the same weights (the ControlNets' zero convs drawn live) and
+    noise: `img2img_fn()`, `sdxl_inpaint_fn()`, `canny_consistency_fn()`
+    (masked, the IP-Adapter on an exemplar), `sdxl_material_fn()` and
+    `depth_fn()`, each within twice the CPU's own bf16 distance."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+    r = dataclasses.replace
+
+    def cfg(dtype):
+        d = tiny.depth_cfg
+        return r(tiny, refine_unet=r(tiny.refine_unet, dtype=dtype),
+                 sdxl_vae=r(tiny.sdxl_vae, dtype=dtype), text=r(tiny.text, dtype=dtype),
+                 text_g=r(tiny.text_g, dtype=dtype), vision=r(tiny.vision, dtype=dtype),
+                 depth_cfg=r(d, dtype=dtype, backbone=r(d.backbone, dtype=dtype)))
+
+    def models(z):
+        return (z._refine_unet()[0], z._vae_named("sdxl_vae"),
+                z._text_model("clip_text", z.cfg.text), z._text_model("clip_text_g", z.cfg.text_g),
+                z._vision("clip_vision", z.cfg.vision), z._text_proj(),
+                z._control_unet("controlnet_canny"), z._control_unet("controlnet_depth"),
+                *z._ip_modules(), z._depth_model())
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    for i, slot in enumerate(("controlnet_canny", "controlnet_depth")):
+        live_zero_convs_(zoos["ref"]._control_unet(slot), 20 + i)
+    for k in ("cpu16", "card16"):
+        for src, dst in zip(models(zoos["ref"]), models(zoos[k])):
+            dst.load_state_dict(src.state_dict())
+    rng = np.random.default_rng(19)
+    img = rng.integers(0, 256, (48, 40, 3), np.uint8)
+    exemplar = rng.integers(0, 256, (40, 40, 3), np.uint8)
+    mask = np.zeros((48, 40), bool)
+    mask[8:40, 6:30] = True
+    noise = [torch.from_numpy(rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
+             for _ in range(2)]
+    depth_u8 = rng.integers(0, 256, (48, 40), np.uint8)
+    prompt = "a marble statue in a garden"
+
+    def run(z):
+        return {"img2img": z.img2img_fn()(img, prompt, 0.5, 0, steps=4, noise=noise[0]),
+                "sdxl_inpaint": z.sdxl_inpaint_fn()(img, mask, prompt, 1, steps=4,
+                                                    noise=noise[0], renoise=noise[1]),
+                "canny_consistency": z.canny_consistency_fn()(
+                    img, prompt, 2, steps=4, ref_image=exemplar, mask01=mask, noise=noise[0],
+                    renoise=noise[1]),
+                "sdxl_material": z.sdxl_material_fn()(img, mask, depth_u8, exemplar, steps=4,
+                                                      noise=noise[0]),
+                "depth": z.depth_fn()(img)}
+    outs = {k: run(z) for k, z in zoos.items()}
+    for what, ref in outs["ref"].items():
+        ref = ref.astype(np.int32)
+        err = {k: np.abs(outs[k][what].astype(np.int32) - ref) for k in ("cpu16", "card16")}
+        print(f"tiny {what} vs CPU fp32: " + ", ".join(
+            f"{k} uint8 max diff {e.max()} mean {e.mean():.4f}" for k, e in err.items()),
+            flush=True)
+        require(outs["card16"][what].shape == ref.shape, f"tiny {what}: the frame's shape")
+        require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
+                and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
+                f"the card's bf16 {what} is within twice the CPU's bf16 error")
+    require(np.abs(outs["ref"]["img2img"].astype(np.int32) - img).mean() > 1.0,
+            "tiny img2img changes the image")
+
+
+def sdxl_bound_ms(modules, call, ip_tokens: int = 0) -> tuple[float, str, float]:
+    """(bound ms, "operations" or "bytes", TFLOP) of one `call()` through
+    `modules` (the SDXL UNet, and its ControlNet), counted from the code's
+    operations as it runs them: forward hooks sum the MACs of every Conv2d
+    (out elements x in channels x kernel area) and Linear (out elements x in
+    features), and each MultiHeadAttention's QK^T and PV (2 Lq Lkv x its
+    inner width; at a cross site under the IP-Adapter processor also Lq x
+    `ip_tokens` twice); at 989 TFLOP/s (bf16 dense). Bytes: the modules'
+    parameters read once at 3.35 TB/s (activations, norms and elementwise
+    work not counted)."""
+    import torch
+    from anyedit_tpu_torch.models.layers import MultiHeadAttention
+
+    macs = [0]
+
+    def conv(m, inp, out):
+        macs[0] += out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+
+    def linear(m, inp, out):
+        macs[0] += out.numel() * m.in_features
+
+    def attn(m, inp, out):
+        x, context, processor = inp[0], inp[1], inp[2]
+        b, lq = x.shape[:2]
+        inner = m.meta.num_heads * m.meta.head_dim
+        lkv = lq if context is None else context.shape[1]
+        macs[0] += 2 * b * lq * lkv * inner
+        if processor is not None and ip_tokens and not m.meta.is_self:
+            macs[0] += 2 * b * lq * ip_tokens * inner
+    hooks = []
+    for mod in modules:
+        for sub in mod.modules():
+            fn = (conv if isinstance(sub, torch.nn.Conv2d) else
+                  linear if isinstance(sub, torch.nn.Linear) else
+                  attn if isinstance(sub, MultiHeadAttention) else None)
+            if fn is not None:
+                hooks.append(sub.register_forward_hook(fn))
+    try:
+        with torch.inference_mode():
+            call()
+    finally:
+        for h in hooks:
+            h.remove()
+    flop = 2.0 * macs[0]
+    moved = sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+    ops_ms, bytes_ms = flop / 989e12 * 1e3, moved / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop / 1e12
+
+
+def sdxl_record(dev, tb, edit_type: str, fields: dict, k1_want: int, size):
+    """One record through `synth_executor` (gates open): success, the edit a
+    (size, 3) uint8 frame, K1 exactly `k1_want`, every K2 launch tallied.
+    Returns (line, seconds, launches, tally)."""
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+
+    rec = InstructionRecord.from_json(dict(fields, edit_type=edit_type, id=edit_type))
+    img = np.random.default_rng(23).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    (line,), seconds, launches, tally = synth_executor(tb, [rec], img)
+    require(line["status"] == "success" and "frames" in line,
+            f"the {edit_type} record succeeded through the executor ({line})")
+    require(line["frames"][1].shape == tuple(size) + (3,), f"{edit_type}: a {size} frame")
+    require(launches["flash_nomax"] == k1_want,
+            f"{edit_type} launched K1 {launches['flash_nomax']} times, want {k1_want}")
+    require(launches["group_norm"] > 0 and sum(tally.values()) == launches["group_norm"],
+            f"{edit_type}: K2 launched ({launches['group_norm']}) and every launch tallied")
+    print(f"{edit_type} record through FactoryExecutor (gates open): {seconds:.3f} s; "
+          f"launches {launches}; K2 at {len(tally)} shapes", flush=True)
+    return line, seconds, launches, tally
+
+
+def sdxl_toolbox(dev):
+    """The refine stack at published widths on the production `ZooConfig`
+    (box_threshold 0.0, so that the random detector keeps boxes), seeded:
+    the grounder and the slots of implicit_change and material_transfer,
+    the two ControlNets' zero convs drawn live, and a seeded 512 px
+    exemplar behind `tb.extra["load_visual"]`. Returns (zoo, tb, exemplar)."""
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    tb = Toolbox(ground=zoo.grounder())
+    for slot in ("p2p_pair", "sdxl_inpaint", "sdxl_img2img", "canny_consistency", "clip",
+                 "sdxl_material", "depth"):
+        zoo.install(tb, slot)
+    for i, slot in enumerate(("controlnet_canny", "controlnet_depth")):
+        live_zero_convs_(zoo._control_unet(slot), 30 + i)
+    exemplar = np.random.default_rng(24).integers(0, 256, (512, 512, 3), np.uint8)
+    tb.extra["load_visual"] = lambda rec: exemplar
+    return zoo, tb, exemplar
+
+
+def sdxl_unet_inputs(zoo, exemplar, dev):
+    """One refine call's inputs at batch 2 (CFG): seeded latents at the
+    canvas' latent size, t = 500, the [cond, uncond] SDXL conditioning of
+    the implicit_change record's target caption; and the canny hint and the
+    IP-Adapter processor of the exemplar. Returns ((x, t, ctx2, pooled2,
+    tid2), hint2, processor)."""
+    import torch
+
+    hw = zoo.cfg.canvas.edit_size // zoo.cfg.canvas.latent_down
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn(2, hw, hw, 4, generator=g, device=dev)
+    t = torch.full((2,), 500, device=dev)
+    with torch.inference_mode():
+        ctx2, pooled2, tid2 = zoo._xl_cond(SYNTH_RECORDS["implicit_change"]["output"])
+        return ((x, t, ctx2, pooled2, tid2), zoo._hint2(zoo.canny_fn(exemplar)),
+                zoo._ip_processor(exemplar))
+
+
+def sdxl_phase(dev):
+    """On `sdxl_toolbox`: one implicit_change record with all four stages
+    installed (each stage slot called as often as SDXL_STAGE_CALLS says,
+    K1 SDXL_IMPLICIT_K1) and one 480x640 material_transfer record (K1
+    SDXL_MATERIAL_K1) through `FactoryExecutor`; then the SDXL UNet call at
+    batch 2, plain and with the canny ControlNet plus the IP-Adapter, in ms
+    (CUDA events) beside `sdxl_bound_ms`, and the run's peak GiB. Returns
+    ({path: (launches, tally)}, numbers, the UNet inputs, the plain call's
+    output)."""
+    import collections
+
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zoo, tb, exemplar = sdxl_toolbox(dev)
+    calls = collections.Counter()
+    for name in SDXL_STAGE_CALLS:
+        def counted(*a, _fn=tb.extra[name], _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        tb.extra[name] = counted
+    torch.cuda.synchronize()
+    nums = {"build_s": time.perf_counter() - t0}
+    size = zoo.cfg.canvas.edit_size
+
+    paths = {}
+    line, sec, launches, tally = sdxl_record(dev, tb, "implicit_change",
+                                             SYNTH_RECORDS["implicit_change"],
+                                             SDXL_IMPLICIT_K1, (size, size))
+    require(dict(calls) == SDXL_STAGE_CALLS,
+            f"implicit_change called its stages {dict(calls)}, want {SDXL_STAGE_CALLS}")
+    paths["sdxl_implicit"] = (launches, tally)
+    nums["implicit_s"] = sec
+    line, sec, launches, tally = sdxl_record(dev, tb, "material_transfer", MATERIAL_RECORD,
+                                             SDXL_MATERIAL_K1, GROUND_HW)
+    paths["sdxl_material"] = (launches, tally)
+    nums["material_s"] = sec
+
+    unet, _ = zoo._refine_unet()
+    cn = zoo._control_unet("controlnet_canny")
+    args, hint2, proc = sdxl_unet_inputs(zoo, exemplar, dev)
+    x, t, ctx2, pooled2, tid2 = args
+    full = zoo._refine_eps(unet, pooled2, tid2, cn, hint2, proc)
+    with torch.inference_mode():
+        out = unet(x, t, ctx2, pooled_text=pooled2, time_ids=tid2)
+        require(out.isfinite().all() and out.shape == x.shape, "the SDXL UNet's output is finite")
+        nums["unet_ms"] = time_ms(lambda: unet(x, t, ctx2, pooled_text=pooled2,
+                                               time_ids=tid2), iters=5)
+        nums["unet_cn_ip_ms"] = time_ms(lambda: full(x, t, ctx2), iters=5)
+    nums["bound_ms"], nums["bound_by"], nums["tflop"] = sdxl_bound_ms(
+        [unet], lambda: unet(x, t, ctx2, pooled_text=pooled2, time_ids=tid2))
+    nums["cn_ip_bound_ms"], nums["cn_ip_bound_by"], nums["cn_ip_tflop"] = sdxl_bound_ms(
+        [unet, cn], lambda: full(x, t, ctx2), ip_tokens=4)
+    nums["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"SDXL UNet call at batch 2 ({x.shape[1]} x {x.shape[2]} latents): "
+          f"{nums['unet_ms']:.3f} ms against a bound of {nums['bound_ms']:.3f} ms "
+          f"({nums['bound_by']}: {nums['tflop']:.3f} TFLOP); with the canny ControlNet and the "
+          f"IP-Adapter {nums['unet_cn_ip_ms']:.3f} ms (bound {nums['cn_ip_bound_ms']:.3f} ms, "
+          f"{nums['cn_ip_tflop']:.3f} TFLOP); build {nums['build_s']:.2f} s, peak "
+          f"{nums['peak_gib']:.2f} GiB", flush=True)
+    del tb, zoo, full, proc, unet, cn
+    return paths, nums, args, out
+
+
+def sdxl_w8a8(dev, args, out):
+    """The W8A8 refine UNet (`quant_diffusion`, quantized from the fp32
+    seeded init on a zoo of its own) on the timed inputs against the bf16
+    call's output: cosine > 0.95. Returns (cosine, ms)."""
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    qzoo = ModelZoo(ZooConfig(quant_diffusion=True), dev, seed=0)
+    qunet, _ = qzoo._refine_unet()
+    x, t, ctx2, pooled2, tid2 = args
+    with torch.inference_mode():
+        cos = cosine(qunet(x, t, ctx2, pooled_text=pooled2, time_ids=tid2), out)
+        q_ms = time_ms(lambda: qunet(x, t, ctx2, pooled_text=pooled2, time_ids=tid2), iters=3)
+    del qunet, qzoo
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"W8A8 SDXL UNet call at batch 2: {q_ms:.3f} ms, against bf16 cosine {cos:.5f}",
+          flush=True)
+    require(cos > 0.95, "the W8A8 refine UNet tracks the bf16 one (cosine > 0.95)")
+    return cos, q_ms
+
+
+def new_k2_rows(dev, tallies: dict, held: set) -> tuple[list, dict]:
+    """K2 at every (shape, SiLU) the paths of `tallies` launched it that no
+    row in `held` holds yet, with `check_kernels`' bounds, as
+    `synth_k2_rows`; and {(shape, silu): {path: launches}} for the shapes
+    already held, whose rows gain the launches."""
+    fresh, seen = {}, {}
+    for path, tally in tallies.items():
+        for (shape, silu, dtype), n in tally.items():
+            require(dtype == "torch.bfloat16", f"the {path} path launched K2 in {dtype}")
+            dst = seen if (shape, silu) in held else fresh
+            dst.setdefault((shape, silu), {})[path] = n
+    return synth_k2_rows(dev, {p: {(s, silu, "torch.bfloat16"): n
+                                   for (s, silu), per in fresh.items()
+                                   for q, n in per.items() if q == p}
+                               for p in tallies}), seen
+
 
 
 def main() -> int:
@@ -2145,6 +2497,9 @@ def main() -> int:
 
     with phase("synth reference"):
         check_synth_reference(dev)
+
+    with phase("sdxl reference"):
+        check_sdxl_reference(dev)
 
     with phase("lama"):
         lama_err, lama_ms = check_lama(dev)
@@ -2262,6 +2617,24 @@ def main() -> int:
               f"(build peak {f_qpeak:.2f} GiB)", flush=True)
         synth_rows = synth_k2_rows(dev, {p: t for p, (_, t) in synth_paths.items()})
 
+    # the SDXL refine stack on a zoo of its own (freed before the W8A8 UNet)
+    with phase("sdxl"):
+        sdxl_paths, sx, sargs, sout = sdxl_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        s_cos, s_qms = sdxl_w8a8(dev, sargs, sout)
+        del sargs, sout
+        print(f"{card_line}: implicit_change (all four stages) {sx['implicit_s']:.3f} s, "
+              f"material_transfer {sx['material_s']:.3f} s a record; SDXL UNet at batch 2 "
+              f"{sx['unet_ms']:.3f} ms (bound {sx['bound_ms']:.3f} ms), with ControlNet + "
+              f"IP-Adapter {sx['unet_cn_ip_ms']:.3f} ms (bound {sx['cn_ip_bound_ms']:.3f} ms), "
+              f"W8A8 {s_qms:.3f} ms, cosine {s_cos:.5f}; peak {sx['peak_gib']:.2f} GiB",
+              flush=True)
+        held = {key for *_, key in slice_rows if key[1] is not None}
+        held |= {key for *_, key in synth_rows}
+        sdxl_rows, sdxl_seen = new_k2_rows(dev, {p: t for p, (_, t) in sdxl_paths.items()},
+                                           held)
+
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
@@ -2296,14 +2669,16 @@ def main() -> int:
     # 0 launches
     kernels[0]["launches_geometry"] = geo_launches["flash_nomax"]
     kernels[0]["launches_ultraedit"] = u_launches["flash_nomax"]
-    for path, (launches_p, _) in synth_paths.items():
+    for path, (launches_p, _) in list(synth_paths.items()) + list(sdxl_paths.items()):
         kernels[0][f"launches_{path}"] = launches_p["flash_nomax"]
     # this slice's shapes, each its own row, with the kernel's launches in
     # the run of the path that gives it that shape (at that shape, for
     # K2_TALLY_PATHS)
-    path_launches = {"sd": sd_launches, **ch["launches"]}
+    path_launches = {"sd": sd_launches, **ch["launches"],
+                     **{p: launches_p for p, (launches_p, _) in sdxl_paths.items()}}
     tallied = k2_rows_launches({"geometry": geo_tally, "ultraedit": u["k2_tally"]})
     sources = {k["name"]: (k["source"], k["replaces"]) for k in kernels}
+    k2_by_key = {}
     for name, tag, r, path, key in slice_rows:
         if path in K2_TALLY_PATHS:
             row = entry(name, *sources[name], tallied[key + (path,)], [(tag, r)])
@@ -2311,15 +2686,25 @@ def main() -> int:
                 row["launches_ultraedit"] = tallied.get(key + ("ultraedit",), 0)
         else:
             row = entry(name, *sources[name], path_launches[path][name], [(tag, r)])
+        if path == "sdxl_implicit":
+            row["launches_sdxl_material"] = sdxl_paths["sdxl_material"][0][name]
         row["path"] = PATHS[path]
         kernels.append(row)
-    # K2 at the caption-pair paths' shapes, each row with the launches at its
-    # shape in the first path that gives it, and in the others
-    for tag, r, path, per_path in synth_rows:
+        if name == "group_norm":
+            k2_by_key[key] = row
+    # K2 at the caption-pair and refine paths' shapes, each row with the
+    # launches at its shape in the first path that gives it, and in the
+    # others; a shape an earlier row holds gains the refine paths' launches
+    path_names = {**{p: d for p, (_, d) in SYNTH_PATHS.items()},
+                  **{p: d for p, (_, d) in SDXL_PATHS.items()}}
+    for tag, r, path, per_path, key in synth_rows + sdxl_rows:
         row = entry("group_norm", *sources["group_norm"], per_path[path], [(tag, r)])
         row.update({f"launches_{p}": n for p, n in per_path.items() if p != path})
-        row["path"] = SYNTH_PATHS[path][1]
+        row["path"] = path_names[path]
         kernels.append(row)
+        k2_by_key[key] = row
+    for key, per_path in sdxl_seen.items():
+        k2_by_key[key].update({f"launches_{p}": n for p, n in per_path.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

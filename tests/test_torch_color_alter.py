@@ -181,10 +181,10 @@ def test_registry_names_what_is_ported():
     with pytest.raises(KeyError, match="ported: \\['action_change', 'add', "
                                        "'appearance_alter', 'background_change', "
                                        "'color_alter', 'counting', 'implicit_change', "
-                                       "'material_alter', 'movement', 'outpainting', "
-                                       "'relation', 'remove', 'replace', 'resize', "
-                                       "'style_change', 'textual_change', "
-                                       "'tone_transfer'\\]"):
+                                       "'material_alter', 'material_transfer', 'movement', "
+                                       "'outpainting', 'relation', 'remove', 'replace', "
+                                       "'resize', 'style_change', 'textual_change', "
+                                       "'tone_transfer', 'visual_material_transfer'\\]"):
         get_pipeline("composition")
 
 

@@ -63,8 +63,7 @@ FRAME_MAX, FRAME_MEAN = 1, 0.01
 TYPES = ("action_change", "implicit_change", "textual_change")
 # the reference's edit types whose slots are not ported yet (ROADMAP queue 1)
 QUEUED = {"visual_bbox", "visual_depth", "visual_scribble", "visual_segment",
-          "visual_sketch", "visual_reference", "visual_material_transfer",
-          "material_transfer", "composition", "rotation_change"}
+          "visual_sketch", "visual_reference", "composition", "rotation_change"}
 RECORDS = {
     "action_change": {"edit": "make the dog jump", "input": "a dog sitting on grass",
                       "output": "a dog jumping on grass", "edited object": "dog"},

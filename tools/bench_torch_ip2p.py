@@ -15,6 +15,7 @@
     python3 tools/bench_torch_ip2p.py --ultraedit  # SD3-UltraEdit: MMDiT, conditioning, record
     python3 tools/bench_torch_ip2p.py --masactrl   # MasaCtrl / P2P: UNet b4, two records
     python3 tools/bench_torch_ip2p.py --flux       # Flux-schnell: call, pair, textual_change
+    python3 tools/bench_torch_ip2p.py --sdxl       # SDXL refine stack: UNet b2, two records
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -44,8 +45,14 @@ processor (swap active) and one under the AttentionStore, one
 action_change record (50 steps) and one implicit_change record (3 P2P
 pairs of 20 steps); `--flux` times FLUX_SCHNELL (T5-XXL, CLIP-L, the Flux
 VAE): one Flux call at batch 1, one `flux_pair` (2 x 4 steps) and one
-textual_change record; both the same way, with the run's peak GiB. Every
-line names the card and its power limit.
+textual_change record; both the same way, with the run's peak GiB.
+`--sdxl` times the SDXL refine stack at published widths (SDXL_UNET, the
+SDXL VAE, CLIP-L and CLIP-bigG, the canny and depth ControlNets with their
+zero convs drawn live, the IP-Adapter on CLIP-L vision, DEPTH_ANYTHING_L,
+the grounder): one UNet call at batch 2 plain, with the canny ControlNet,
+and with the ControlNet and the IP-Adapter processor, one implicit_change
+record with all four stages and one 480x640 material_transfer record, the
+same way. Every line names the card and its power limit.
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402  (the repo root, just put on the path)
-    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, RECORD, SYNTH_RECORDS, VQA_QUESTIONS,
+    GROUND_HW, K2_GDINO_SHAPES, K3_SHAPES, MATERIAL_RECORD, RECORD, SYNTH_RECORDS,
+    VQA_QUESTIONS,
 )
 
 SIZE = 512
@@ -539,10 +547,14 @@ def bench_ground(dev, runs: int = 3) -> list[dict]:
     return timed_rows(work, runs)
 
 
-def timed_rows(work, runs: int) -> list[dict]:
+def timed_rows(work, runs: int, device_only: tuple = ()) -> list[dict]:
     """For each (label, fn): `runs` timed calls after a warm-up (host clock
     around work that ends in a device synchronise), all parts before the
-    first profiled call; then one call each under `torch.profiler`."""
+    first profiled call; then one call each under `torch.profiler`, which
+    records only the device's events for the labels in `device_only` (a
+    record of some 10^6 launches, whose host events would take the
+    profiler longer than the record). Each row is also printed to stderr
+    as it is done."""
     import statistics
 
     import torch
@@ -562,8 +574,10 @@ def timed_rows(work, runs: int) -> list[dict]:
         timed.append(secs)
     rows = []
     for (label, fn), secs in zip(work, timed):
+        acts = [ProfilerActivity.CUDA] if label in device_only else \
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         with torch.inference_mode():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profile(activities=acts) as prof:
                 fn()
                 torch.cuda.synchronize()
         ms, launches, by_kernel = device_classes(prof, 1)
@@ -574,6 +588,8 @@ def timed_rows(work, runs: int) -> list[dict]:
                      "busy_share": busy / median_ms, "ms_by_class": dict(ms.most_common()),
                      "launches_by_class": {k: round(v) for k, v in launches.items()},
                      "top_kernels_ms": dict(by_kernel.most_common(8))})
+        print(f"# {label}: median {median_ms:.1f} ms, busy {busy:.1f} ms", file=sys.stderr,
+              flush=True)
     return rows
 
 
@@ -754,6 +770,48 @@ def bench_flux(dev, runs: int = 3) -> list[dict]:
     return rows
 
 
+def bench_sdxl(dev, runs: int = 3) -> list[dict]:
+    """The SDXL refine stack at full width (`chip_smoke.sdxl_toolbox`: the
+    production `ZooConfig` at box_threshold 0.0, seeded weights on the card,
+    the ControlNets' zero convs drawn live), as `bench_ground` times its
+    parts: the SDXL UNet at batch 2 (64 x 64 latents, 77 tokens, the micro-
+    conditioning) plain, with the canny ControlNet's residuals, and with
+    them under the IP-Adapter processor; one implicit_change record with all
+    four stages installed and one 480x640 material_transfer record through
+    the registry. The last row adds the run's peak GiB."""
+    import numpy as np
+    import torch
+    from chip_smoke import sdxl_toolbox, sdxl_unet_inputs
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+
+    zoo, tb, exemplar = sdxl_toolbox(dev)
+    unet, _ = zoo._refine_unet()
+    cn = zoo._control_unet("controlnet_canny")
+    (x, t, ctx2, pooled2, tid2), hint2, proc = sdxl_unet_inputs(zoo, exemplar, dev)
+    plain = zoo._refine_eps(unet, pooled2, tid2)
+    with_cn = zoo._refine_eps(unet, pooled2, tid2, cn, hint2)
+    full = zoo._refine_eps(unet, pooled2, tid2, cn, hint2, proc)
+    img = np.random.default_rng(23).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    recs = {et: InstructionRecord.from_json(dict(fields, edit_type=et))
+            for et, fields in (("implicit_change", SYNTH_RECORDS["implicit_change"]),
+                               ("material_transfer", MATERIAL_RECORD))}
+
+    def record(et):
+        return lambda: get_pipeline(et)(tb, recs[et], img, np.random.default_rng(0))
+    torch.cuda.reset_peak_memory_stats()
+    work = [("sdxl unet call (SDXL_UNET, batch 2, 64 x 64 latents)", lambda: plain(x, t, ctx2)),
+            ("sdxl unet call with the canny ControlNet", lambda: with_cn(x, t, ctx2)),
+            ("sdxl unet call with the canny ControlNet and the IP-Adapter",
+             lambda: full(x, t, ctx2)),
+            ("implicit_change record (3 candidates, all four stages)",
+             record("implicit_change")),
+            ("material_transfer record (480x640, 27 steps)", record("material_transfer"))]
+    rows = timed_rows(work, runs, device_only=tuple(label for label, _ in work[3:]))
+    rows[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -782,12 +840,15 @@ def main() -> int:
                       help="the UNet under MasaCtrl / the AttentionStore and two records instead")
     mode.add_argument("--flux", action="store_true",
                       help="the Flux call, one Flux pair and one textual_change record instead")
+    mode.add_argument("--sdxl", action="store_true",
+                      help="the SDXL UNet call and the implicit_change and material_transfer "
+                           "records instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
                       or args.paths or args.ground or args.scorers or args.ultraedit
-                      or args.masactrl or args.flux):
+                      or args.masactrl or args.flux or args.sdxl):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -820,6 +881,8 @@ def main() -> int:
         rows = bench_masactrl(dev)
     elif args.flux:
         rows = bench_flux(dev)
+    elif args.sdxl:
+        rows = bench_sdxl(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
