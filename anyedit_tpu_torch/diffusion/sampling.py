@@ -1,7 +1,8 @@
 """Classifier-free-guidance samplers over an `eps_fn` (counterpart of
 `anyedit_tpu/diffusion/sampling.py`): masked inpainting, SDEdit img2img
-(with an optional mask: the SDXL-inpaint loop), and the Prompt-to-Prompt
-pair sampler of the JAX zoo's `p2p_pair`.
+(with an optional mask: the SDXL-inpaint loop), the Prompt-to-Prompt
+pair sampler of the JAX zoo's `p2p_pair`, and the plain 2-way CFG loop of
+the JAX zoo's `composition_fn` and `anydoor` (`sample_cfg`).
 
 The JAX package draws the start noise from `key` and the re-noise noise
 from `fold_in(key, 1)` inside the function; here both are inputs
@@ -92,6 +93,21 @@ def sample_img2img(eps_fn: EpsFn, ns: NoiseSchedule, image_latents: torch.Tensor
             ren = (add_noise(ns, image_latents, renoise, st.timesteps[i + 1])
                    if i + 1 < num_steps else image_latents)
             lat = mask * lat + (1.0 - mask) * ren
+    return lat
+
+
+def sample_cfg(eps_fn: EpsFn, ns: NoiseSchedule, noise: torch.Tensor, ctx2: torch.Tensor,
+               num_steps: int = 50, guidance_scale: float = 7.5) -> torch.Tensor:
+    """DDIM from the start latents `noise` (B, h, w, C) with 2-way CFG, one
+    batch-2B `eps_fn` call a step over ctx2 = [cond rows, uncond rows].
+    Returns the latents (B, h, w, C) fp32."""
+    b = noise.shape[0]
+    st = ddim_init(ns, num_steps)
+    lat = noise.float()
+    for i in range(num_steps):
+        e_c, e_u = eps_fn(torch.cat([lat, lat], dim=0), st.timesteps[i].expand(2 * b),
+                          ctx2).chunk(2, dim=0)
+        lat = ddim_step(ns, st, i, e_u + guidance_scale * (e_c - e_u), lat)
     return lat
 
 

@@ -1,13 +1,14 @@
-"""DINOv2 ViT, the backbone of Depth-Anything-V2 (counterpart of
-`anyedit_tpu/models/dinov2.py`).
+"""DINOv2 ViT, the backbone of Depth-Anything-V2 (ViT-L) and AnyDoor's
+reference encoder (ViT-g) (counterpart of `anyedit_tpu/models/dinov2.py`).
 
 A ViT with a class token, LayerScale and the final norm applied to the
 intermediate layers it returns. Submodules carry the official DINOv2 names
 (`patch_embed.proj`, `cls_token`, `pos_embed`, `blocks.i.{norm1, attn.qkv,
 attn.proj, ls1.gamma, norm2, mlp.fc1, mlp.fc2, ls2.gamma}`, `norm`), which
-Depth-Anything-V2's checkpoint nests under `pretrained.`. Attention is the
-plain `sdpa`, as the JAX module calls `sdpa_xla`: at 518 px the 1,370
-tokens are off K1's route anyway. The LayerScale gains are fp32, so from
+Depth-Anything-V2's checkpoint nests under `pretrained.`; ViT-g's FFN is the
+hub's fused SwiGLU (`mlp.w12`, `mlp.w3`). Attention is the plain `sdpa`, as
+the JAX module calls `sdpa_xla`: at 518 px the 1,370 tokens, and at 224 px
+the 257, are off K1's route anyway. The LayerScale gains are fp32, so from
 the first block on the residual stream is fp32, as JAX's promotion leaves
 it.
 """
@@ -33,11 +34,17 @@ class DinoV2Config:
     depth: int = 24
     heads: int = 16
     layerscale_init: float = 1e-5
-    ffn: str = "mlp"          # ViT-S/B/L: a GELU MLP (ViT-g's SwiGLU is not ported)
+    # ViT-S/B/L: a GELU MLP; ViT-g ("giant2"): the hub's SwiGLUFFNFused
+    ffn: str = "mlp"
     dtype: Any = torch.bfloat16
+
+    @property
+    def swiglu_hidden(self) -> int:
+        return int(self.dim * 4 * 2 / 3 + 7) // 8 * 8
 
 
 DINOV2_L = DinoV2Config()
+DINOV2_G = DinoV2Config(dim=1536, depth=40, heads=24, ffn="swiglu")
 TINY_DINO = DinoV2Config(img_size=28, patch=7, dim=32, depth=2, heads=2)
 
 
@@ -77,6 +84,21 @@ class _MLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))     # exact GELU, as torch's nn.GELU
 
 
+class _SwiGLU(nn.Module):
+    """w12 -> (w1 | w2), out = w3(silu(w1 x) * w2 x)."""
+
+    def __init__(self, c: DinoV2Config, device=None):
+        super().__init__()
+        kw = dict(dtype=c.dtype, device=device)
+        self.hidden = c.swiglu_hidden
+        self.w12 = nn.Linear(c.dim, 2 * self.hidden, **kw)
+        self.w3 = nn.Linear(self.hidden, c.dim, **kw)
+
+    def forward(self, x):
+        h1, h2 = self.w12(x).split(self.hidden, dim=-1)
+        return self.w3(F.silu(h1) * h2)
+
+
 class DinoBlock(nn.Module):
     def __init__(self, c: DinoV2Config, device=None):
         super().__init__()
@@ -85,7 +107,7 @@ class DinoBlock(nn.Module):
         self.attn = _Attention(c, device)
         self.ls1 = _LayerScale(c.dim, c.layerscale_init, device)
         self.norm2 = LayerNorm(c.dim, **kw)
-        self.mlp = _MLP(c, device)
+        self.mlp = _SwiGLU(c, device) if c.ffn == "swiglu" else _MLP(c, device)
         self.ls2 = _LayerScale(c.dim, c.layerscale_init, device)
 
     def forward(self, x):

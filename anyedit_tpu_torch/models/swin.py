@@ -1,5 +1,5 @@
-"""Swin Transformer backbone, GroundingDINO's vision tower (counterpart of
-`anyedit_tpu/models/swin.py`).
+"""Swin Transformer backbone, GroundingDINO's vision tower (Swin-B) and the
+UperNet segmenter's (Swin-T) (counterpart of `anyedit_tpu/models/swin.py`).
 
 Submodules carry the official Swin names (patch_embed.proj / .norm,
 layers.I.blocks.J.{norm1, attn.qkv, attn.proj,
@@ -40,6 +40,7 @@ class SwinConfig:
 
 
 SWIN_B = SwinConfig()
+SWIN_T = SwinConfig(embed_dim=96, depths=(2, 2, 6, 2), heads=(3, 6, 12, 24), window=7)
 TINY_SWIN = SwinConfig(embed_dim=16, depths=(1, 1), heads=(2, 2), window=4,
                        out_indices=(0, 1))
 

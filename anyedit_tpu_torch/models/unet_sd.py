@@ -77,6 +77,11 @@ SDXL_UNET = UNetConfig(block_channels=(320, 640, 1280), attn_levels=(False, True
                        context_dim=2048, addition_embed_dim=1280, addition_time_dim=6,
                        use_linear_projection=True)
 SDXL_INPAINT_UNET = dataclasses.replace(SDXL_UNET, in_channels=9)
+# AnyDoor's SD2.1-class UNet (anydoor.yaml: context 1,024, 64-channel heads:
+# 5 / 10 / 20 / 20 per level). proj_in / proj_out stay 1x1 convs, as in the
+# JAX package's config (anydoor.yaml's use_linear_in_transformer holds the
+# same weights as Linears).
+SD21_ANYDOOR_UNET = UNetConfig(num_head_channels=64, context_dim=1024)
 TINY_UNET = UNetConfig(block_channels=(32, 64), attn_levels=(True, False),
                        num_head_channels=8, context_dim=32, num_groups=8,
                        layers_per_block=1)

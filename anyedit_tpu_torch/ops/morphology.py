@@ -1,10 +1,11 @@
-"""Mask morphology on the tensor's device: dilate and Gaussian blur.
+"""Mask morphology on the tensor's device: dilate, Gaussian blur and the
+Sobel gradient magnitude.
 
 Counterpart of `anyedit_tpu/ops/morphology.py`, with its border handling:
 `dilate` pads k // 2 on each side with the max's identity (so an even k
 grows the map by one, as `lax.reduce_window` does), and `gaussian_blur`
 reflect-pads (numpy "reflect": the edge is not repeated) by the radius
-before two valid 1-D convolutions.
+before two valid 1-D convolutions, and `sobel_magnitude` zero-pads by one.
 """
 
 from __future__ import annotations
@@ -43,3 +44,16 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
     x = F.conv2d(x, k.reshape(1, 1, -1, 1))
     x = F.conv2d(x, k.reshape(1, 1, 1, -1))
     return x.reshape(lead + (h, w)).to(img.dtype)
+
+
+def sobel_magnitude(gray: torch.Tensor) -> torch.Tensor:
+    """Sobel gradient magnitude sqrt(gx^2 + gy^2) over the trailing (H, W)
+    of (..., H, W), zero-padded, fp32: AnyDoor's high-frequency map
+    (tool.py:366-386)."""
+    kx = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]],
+                      device=gray.device)
+    lead, (h, w) = gray.shape[:-2], gray.shape[-2:]
+    x = gray.float().reshape(-1, 1, h, w)
+    gx = F.conv2d(x, kx[None, None], padding=1)
+    gy = F.conv2d(x, kx.T.contiguous()[None, None], padding=1)
+    return torch.sqrt(gx * gx + gy * gy).reshape(lead + (h, w))

@@ -113,6 +113,8 @@ _FIRST_GROUND: dict[str, tuple[str, str]] = {
     "resize": ("edited_object", "max"), "movement": ("edited_object", "max"),
     "relation": ("edited_object", "max"),
     "outpainting": ("edited_object", "merge"),
+    "visual_bbox": ("edited_object", "merge"),
+    "visual_reference": ("edited_object", "max"),
     "visual_material_transfer": ("edited_object", "max"),
     "material_transfer": ("edited_object", "max"),
 }
@@ -135,7 +137,8 @@ def _first_ground_spec(rec) -> Optional[tuple[str, str, Optional[int]]]:
     spec = _FIRST_GROUND.get(rec.edit_type)
     if spec is None:
         return None
-    phrase = getattr(rec, spec[0]) or (rec.input if rec.edit_type == "outpainting" else None)
+    phrase = getattr(rec, spec[0]) or (rec.input if rec.edit_type in ("outpainting", "visual_bbox")
+                                       else None)
     if rec.edit_type == "background_change" and not phrase:
         phrase = "foreground object"
     if not phrase:

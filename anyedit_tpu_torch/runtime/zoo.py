@@ -3,7 +3,8 @@ condition and scorer slots (counterpart of the `grounder()`, `ip2p()`,
 `inpainter()`, `sd_inpainter()`, `ultraedit_fn()`, `masactrl_pair_fn()`,
 `p2p_pair()`, `flux_pair_fn()`, `text2img_fn()`, `img2img_fn()`,
 `sdxl_inpaint_fn()`, `canny_consistency_fn()`, `sdxl_material_fn()`,
-`canny_fn()`, `depth_fn()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()`
+`canny_fn()`, `depth_fn()`, `hed_fn()`, `seg_fn()`, `composition_fn()`,
+`anydoor()`, `dino_embed()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()`
 and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
@@ -69,8 +70,26 @@ edges, the IP-Adapter on a reference image) and `sdxl_material_fn()`
 (material_transfer: the depth ControlNet, the IP-Adapter on an exemplar,
 the latents outside the mask kept). Each draws its noise (and re-noise)
 from `torch.Generator(seed)` unless given `noise=` (`renoise=`).
-`canny_fn(image_u8)` and `depth_fn()` (Depth-Anything-V2) give the
-condition maps.
+`canny_fn(image_u8)`, `depth_fn()` (Depth-Anything-V2), `hed_fn()` (HED
+soft edges at the canvas size, resized bilinear back) and `seg_fn()`
+(UperNet on Swin-T, the argmax rendered with the ADE palette, resized
+"nearest" back) give the condition maps.
+
+`composition_fn()` returns `run(plan, seed, steps=50, noise=None)`: the
+canvas plan's regional cross-attention (`diffusion/regional.py`) on the
+resident SD1.5 UNet (`_sd_core()`), 50 DDIM steps at CFG 7.5, every site
+through the regional processor (plain sdpa, no hand attention kernel).
+`anydoor()` returns `run(target_u8, mask, collage_u8, hf_map, ref_u8, steps=50,
+cfg_scale=9.0, seed=0, noise=None)`: AnyDoor's ControlLDM, the SD2.1-class
+UNet (`anydoor_unet`) with its ControlNet on the 4-channel hint (collage /
+255 and HF map / 255 at 8x the latent size), conditioned on the DINOv2
+tokens of the reference (`dino_cfg`, ViT-g at 224 px) through a fp32
+projection, an all-zero unconditional context, 50 DDIM steps at CFG 9; the
+SD VAE decode is resized lanczos back and pasted under the mask. The JAX
+slot also VAE-encodes the target and reads only the encoding's shape; the
+port skips that encode (the output does not depend on it). `dino_embed()`
+is the L2-normed DINOv2 CLS embedding of an image. Start noise is drawn
+from `torch.Generator(seed)` unless given `noise=`.
 
 The scorer slots: `clip_towers()` returns `(clip_image(image_u8) -> (1, P),
 clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
@@ -80,8 +99,9 @@ the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
 EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
 "aesthetic", "vqa"), the SD inpainter ("sd_inpaint"), UltraEdit
 ("ultraedit", as `tb.extra["ultraedit"]`), the pair synthesizers, the
-refine slots (as `tb.extra[slot]`), "canny" or "depth" to a Toolbox, and
-`toolbox(slots=...)` installs them beside `ground`, `inpaint` and `ip2p`.
+refine slots, "composition", "anydoor" and "dino" (as `tb.extra[...]`), or
+"canny", "depth", "hed" or "seg" to a Toolbox, and `toolbox(slots=...)`
+installs them beside `ground`, `inpaint` and `ip2p`.
 """
 
 from __future__ import annotations
@@ -97,7 +117,8 @@ import torch.nn.functional as F
 from anyedit_tpu_torch.core.config import CanvasConfig
 from anyedit_tpu_torch.diffusion import flux_sample, ip2p_edit, sample_inpaint, ultraedit_edit
 from anyedit_tpu_torch.diffusion.processors import AttentionStore, mask_from_ca
-from anyedit_tpu_torch.diffusion.sampling import p2p_sample, sample_img2img
+from anyedit_tpu_torch.diffusion.regional import build_regional_conditioning, parse_canvas_plan
+from anyedit_tpu_torch.diffusion.sampling import p2p_sample, sample_cfg, sample_img2img
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
@@ -114,8 +135,10 @@ from anyedit_tpu_torch.models.controlnet import ControlNet
 from anyedit_tpu_torch.models.depth import (
     DEPTH_ANYTHING_L, TINY_DEPTH, DepthAnythingV2, DPTConfig, depth_to_u8,
 )
+from anyedit_tpu_torch.models.dinov2 import DINOV2_G, DINOV2_L, DinoV2, DinoV2Config
 from anyedit_tpu_torch.models.flux import FLUX_SCHNELL, TINY_FLUX, Flux, FluxConfig
 from anyedit_tpu_torch.models.gdino import GDINO_SWINB, TINY_GDINO, GDINOConfig, GroundingDINO
+from anyedit_tpu_torch.models.hed import HED
 from anyedit_tpu_torch.models.ip_adapter import (
     ImageProjection, IPAdapterWeights, cross_attn_sites, ip_adapter_processor,
 )
@@ -124,11 +147,14 @@ from anyedit_tpu_torch.models.mmdit import SD3_ULTRAEDIT, TINY_MMDIT, MMDiT, MMD
 from anyedit_tpu_torch.models.sam import (
     SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
 )
+from anyedit_tpu_torch.models.segmentation import (
+    TINY_SEG, UPERNET_SWIN_T, SegConfig, UperNetSegmenter, render_segmentation,
+)
 from anyedit_tpu_torch.models.swin import TINY_SWIN
 from anyedit_tpu_torch.models.t5 import T5_XXL, TINY_T5, T5Config, T5Encoder
 from anyedit_tpu_torch.models.unet_sd import (
-    SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, SDXL_UNET, TINY_UNET, TINY_XL_UNET,
-    UNet2DCondition, UNetConfig,
+    SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, SD21_ANYDOOR_UNET, SDXL_UNET, TINY_UNET,
+    TINY_XL_UNET, UNet2DCondition, UNetConfig,
 )
 from anyedit_tpu_torch.models.vae import (
     FLUX_VAE, SD3_VAE, SD_VAE, SDXL_VAE, TINY_VAE, AutoencoderKL, VAEConfig,
@@ -170,6 +196,12 @@ class ZooConfig:
     mmdit: MMDiTConfig = SD3_ULTRAEDIT
     flux: FluxConfig = FLUX_SCHNELL
     depth_cfg: DPTConfig = DEPTH_ANYTHING_L    # Depth-Anything-V2 (material_transfer)
+    anydoor_unet: UNetConfig = SD21_ANYDOOR_UNET   # AnyDoor's ControlLDM (visual_reference)
+    # AnyDoor's reference encoder and the DINO scorer: the JAX zoo takes
+    # ViT-g at 224 px when a weights dir exists, else a 2-block ViT-L
+    # (`tiny_zoo_config`'s); the port has no weights dir, so it is a field
+    dino_cfg: DinoV2Config = dataclasses.replace(DINOV2_G, img_size=224)
+    seg_cfg: SegConfig = UPERNET_SWIN_T         # visual_segment's segmenter
     eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
     qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
@@ -189,9 +221,10 @@ class ZooConfig:
 def tiny_zoo_config() -> ZooConfig:
     """The grounding, editing, inpainting and scorer fields of the JAX
     package's hermetic tiny config (`anyedit_tpu/cli.py::tiny_zoo_config`): tiny models, 64 px
-    canvas, every box kept above a score of 0. Two differences: every tower
-    is fp32 (the JAX config leaves the tiny Swin, BERT, Q-Former, T5 and
-    DINOv2 in bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
+    canvas, every box kept above a score of 0, the JAX zoo's 2-block
+    DINOv2-L at 56 px for AnyDoor and the DINO scorer. Two differences:
+    every tower is fp32 (the JAX config leaves the tiny Swin, BERT,
+    Q-Former, T5, DINOv2 and the segmenter in bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
     index the table (at TINY_BERT's 128 they fall outside it, which
     `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
@@ -224,6 +257,10 @@ def tiny_zoo_config() -> ZooConfig:
         flux=dataclasses.replace(TINY_FLUX, context_dim=32, pooled_dim=32, **f32),
         depth_cfg=dataclasses.replace(TINY_DEPTH, backbone=dataclasses.replace(
             TINY_DEPTH.backbone, **f32), **f32),
+        anydoor_unet=dataclasses.replace(TINY_UNET, context_dim=64, **f32),
+        dino_cfg=dataclasses.replace(DINOV2_L, img_size=56, depth=2, dim=64, heads=2, **f32),
+        seg_cfg=dataclasses.replace(TINY_SEG, backbone=dataclasses.replace(
+            TINY_SEG.backbone, **f32), **f32),
         eva=dataclasses.replace(TINY_VISION, **f32),
         qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
                                     **f32),
@@ -247,8 +284,9 @@ class ModelZoo:
     "gdino", "sam", "lama", "unet_ip2p", "unet_inpaint", "unet_sd", "vae", "clip_text",
     "clip_vision", "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit",
     "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux", "flux_vae", "unet_refine",
-    "sdxl_vae", "controlnet_canny", "controlnet_depth", "ip_proj", "ip_adapter" and
-    "depth"; a missing slot gets a seeded init (a ControlNet's zero convs and
+    "sdxl_vae", "controlnet_canny", "controlnet_depth", "ip_proj", "ip_adapter",
+    "depth", "hed", "seg", "unet_anydoor", "controlnet_anydoor", "dinov2_g" and
+    "anydoor_proj"; a missing slot gets a seeded init (a ControlNet's zero convs and
     hint projection at zero, as in the JAX zoo). Tokens come from the hash tokenizers the JAX zoo uses
     with no weights dir."""
 
@@ -668,11 +706,22 @@ class ModelZoo:
             tb.canny = self.canny_fn
         elif slot == "depth":
             tb.depth = self.depth_fn()
+        elif slot == "hed":
+            tb.hed = self.hed_fn()
+        elif slot == "seg":
+            tb.seg = self.seg_fn()
+        elif slot == "composition":
+            tb.extra["composition"] = self.composition_fn()
+        elif slot == "anydoor":
+            tb.extra["anydoor"] = self.anydoor()
+        elif slot == "dino":
+            tb.extra["dino_embed"] = self.dino_embed()
         else:
             raise KeyError(f"unknown toolbox slot {slot!r} (ported: 'sd_inpaint', 'clip', "
                            "'aesthetic', 'vqa', 'ultraedit', 'masactrl', 'p2p_pair', "
                            "'flux_pair', 'text2img', 'sdxl_img2img', 'sdxl_inpaint', "
-                           "'canny_consistency', 'sdxl_material', 'canny', 'depth')")
+                           "'canny_consistency', 'sdxl_material', 'canny', 'depth', 'hed', "
+                           "'seg', 'composition', 'anydoor', 'dino')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
         """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
@@ -1276,6 +1325,163 @@ class ModelZoo:
                              ).cpu().numpy()
             return depth
         return self._get("depth", build)
+
+    # ---- visual conditions, composition, AnyDoor -------------------------------
+    def hed_fn(self):
+        """`hed(image_u8) -> (H, W) fp32` soft edges in [0, 1]: HED (fp32) on
+        the image resized bilinear to the canvas, resized bilinear back."""
+        def build():
+            model = self._get("hed_model", lambda: self._load(
+                HED(device=self.device), "hed", bridge.hed_state_dict))
+            size = self.cfg.canvas.edit_size
+
+            @torch.inference_mode()
+            def hed(image_u8) -> np.ndarray:
+                h, w = image_u8.shape[:2]
+                img = torch.as_tensor(np.asarray(image_u8), device=self.device).float()
+                e = model(resize_image(img, size, size, "bilinear")[None])[0]
+                return resize_image(e[..., None], h, w, "bilinear")[..., 0].cpu().numpy()
+            return hed
+        return self._get("hed", build)
+
+    def seg_fn(self):
+        """`seg(image_u8) -> (H, W, 3) uint8`: the segmenter's class map at
+        the canvas size (bilinear, ImageNet mean and std), rendered with the
+        ADE palette and resized "nearest" back."""
+        def build():
+            c = self.cfg
+            model = self._get("seg_model", lambda: self._load(
+                UperNetSegmenter(c.seg_cfg, device=self.device), "seg", bridge.seg_state_dict))
+            s = c.canvas.edit_size
+
+            @torch.inference_mode()
+            def seg(image_u8) -> np.ndarray:
+                h, w = image_u8.shape[:2]
+                rendered = render_segmentation(model(self._pixels(image_u8, s)))[0]
+                return to_u8(resize_image(torch.as_tensor(rendered, device=self.device), h, w,
+                                          "nearest")).cpu().numpy()
+            return seg
+        return self._get("seg", build)
+
+    def composition_fn(self):
+        """`run(plan_text, seed=0, steps=50, cfg_scale=7.5, noise=None) ->
+        image_u8` at the canvas size: the plan's global prompt (or the whole
+        text) and region prompts as one fused CLIP context, the regional
+        bias prepared at the latent sizes hw, hw / 2 and hw / 4, the
+        unconditional context `text("")` once a part, on the resident SD1.5
+        UNet (composition_image_generation.py:40-62)."""
+        def build():
+            c = self.cfg
+            unet, ns = self._sd_core()
+            self._vae()
+            text = self._text_encoder()
+            size = c.canvas.edit_size
+            hw = size // c.canvas.latent_down
+
+            @torch.inference_mode()
+            def run(plan_text: str, seed: int = 0, steps: int = 50, cfg_scale: float = 7.5,
+                    noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                gp, regions = parse_canvas_plan(plan_text)
+                ctx, proc = build_regional_conditioning(text, gp or plan_text, regions,
+                                                        [hw, hw // 2, hw // 4])
+                ctx2 = torch.cat([ctx, torch.cat([text("")] * (1 + len(regions)), dim=1)])
+                lat = sample_cfg(lambda x, t, cx: unet(x, t, cx, processor=proc), ns,
+                                 self._start_noise((1, hw, hw, c.sd_unet.in_channels), seed,
+                                                   noise),
+                                 ctx2.to(torch.bfloat16), num_steps=steps,
+                                 guidance_scale=cfg_scale)
+                return self._from_latents(lat, [(size, size)])[0]
+            return run
+        return self._get("composition", build)
+
+    def _dino(self) -> DinoV2:
+        """AnyDoor's reference tower and the DINO scorer's (slot "dinov2_g")."""
+        return self._get("dinov2_g", lambda: self._load(
+            DinoV2(self.cfg.dino_cfg, device=self.device), "dinov2_g",
+            bridge.dinov2_state_dict))
+
+    def _anydoor_core(self):
+        """(SD2.1-class UNet, its ControlNet on a 4-channel hint, the fp32
+        DINOv2-token projection to the UNet context, noise_schedule): slots
+        "unet_anydoor", "controlnet_anydoor", "anydoor_proj", bf16 apart from
+        the projection."""
+        def build():
+            c = self.cfg
+            ucfg = c.anydoor_unet
+            n = len(ucfg.block_channels)
+            unet = self._unet("unet_anydoor", ucfg, False)
+            cn = self._load(ControlNet(ucfg, 4, device=self.device), "controlnet_anydoor",
+                            lambda t: bridge.controlnet_state_dict(t, n, False))
+            proj = self._load(torch.nn.Linear(c.dino_cfg.dim, ucfg.context_dim,
+                                              device=self.device),
+                              "anydoor_proj", bridge.linear_state_dict)
+            return unet, cn, proj, make_noise_schedule(device=self.device)
+        return self._get("anydoor_core", build)
+
+    def anydoor(self):
+        """`run(target_u8, mask, collage_u8, hf_map, ref_u8, steps=50,
+        cfg_scale=9.0, seed=0, noise=None) -> image_u8` (the target's size):
+        AnyDoor's ControlLDM (cldm/cldm.py:307). Context: the reference's
+        DINOv2 cls and patch tokens through the fp32 projection, beside an
+        all-zero unconditional row. Hint: collage / 255 and hf_map / 255,
+        each resized bilinear to 8x the latent size (4 channels; the mask is
+        not in it). 50 DDIM steps at CFG 9, the ControlNet's residuals in
+        every UNet call; the SD VAE decode resized lanczos to the target's
+        size and pasted where `mask` is 1."""
+        def build():
+            c = self.cfg
+            unet, cn, proj, ns = self._anydoor_core()
+            dino = self._dino()
+            self._vae()
+            size = c.canvas.edit_size
+            hw = size // c.canvas.latent_down
+            hint_size = hw * 8
+
+            def eps_fn(hint2):
+                def eps(x, t, ctx):
+                    res, mid = cn(x, t, ctx, hint2)
+                    return unet(x, t, ctx, controlnet_residuals=res, controlnet_mid=mid)
+                return eps
+
+            def on_device(a) -> torch.Tensor:
+                return torch.as_tensor(np.asarray(a), device=self.device).float()
+
+            @torch.inference_mode()
+            def run(target_u8, mask, collage_u8, hf_map, ref_u8, steps: int = 50,
+                    cfg_scale: float = 9.0, seed: int = 0,
+                    noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                out = dino(self._pixels(ref_u8, c.dino_cfg.img_size))
+                ctx1 = proj(torch.cat([out["cls"][:, None], out["patch"]], dim=1))
+                ctx2 = torch.cat([ctx1, torch.zeros_like(ctx1)]).to(torch.bfloat16)
+                col = resize_image(on_device(collage_u8) / 255.0, hint_size, hint_size,
+                                   "bilinear")
+                hfm = resize_image(on_device(hf_map)[..., None], hint_size, hint_size, "bilinear")
+                hint1 = torch.cat([col, hfm / 255.0], dim=-1)
+                z0 = self._start_noise((1, hw, hw, c.vae.latent_channels), seed, noise)
+                lat = sample_cfg(eps_fn(torch.stack([hint1, hint1])), ns, z0, ctx2,
+                                 num_steps=steps, guidance_scale=cfg_scale)
+                img = self._vae().decode((lat / c.vae.scaling_factor).to(torch.bfloat16))[0]
+                h0, w0 = target_u8.shape[:2]
+                full = resize_image(denormalize_to_u8(img).float(), h0, w0, "lanczos")
+                m = on_device(mask)[..., None]
+                return to_u8(full * m + on_device(target_u8) * (1 - m)).cpu().numpy()
+            return run
+        return self._get("anydoor", build)
+
+    def dino_embed(self):
+        """`embed(image_u8) -> (1, D)` fp32: the L2-normed DINOv2 CLS
+        embedding (bilinear to the tower's size, ImageNet mean and std), the
+        DINO subject-fidelity scorer."""
+        def build():
+            dino = self._dino()
+            s = self.cfg.dino_cfg.img_size
+
+            @torch.inference_mode()
+            def embed(image_u8) -> np.ndarray:
+                cls = dino(self._pixels(image_u8, s))["cls"]
+                return (cls / torch.clamp(cls.norm(dim=-1, keepdim=True), min=1e-8)).cpu().numpy()
+            return embed
+        return self._get("dino_embed", build)
 
 
 @contextlib.contextmanager

@@ -325,33 +325,53 @@ def ip_adapter_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any],
     return _to_tree(like, sd, _ip_adapter_fn(site_names))
 
 
-# ---- Depth-Anything-V2 (convert.py `_da2_key`) ------------------------------
+# ---- DINOv2 (convert.py `_dinov2_hub_key`, `_da2_key`) ------------------------
 
 _DINO_BLOCK = {"ln1": "norm1", "qkv": "attn.qkv", "proj": "attn.proj", "ln2": "norm2",
-               "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+               "fc1": "mlp.fc1", "fc2": "mlp.fc2", "w12": "mlp.w12", "w3": "mlp.w3"}
 
+
+def _dino_key(p: list[str], b: str):
+    """A DinoV2 leaf (path below the module) under the official names at
+    prefix `b` (fused qkv, `ls{1,2}.gamma`, the ViT-g SwiGLU's w12 / w3)."""
+    conv, lin, norm = _kinds(p[-1])
+    name = p[0]
+    top = {"patch_embed": lambda: conv(f"{b}patch_embed.proj"),
+           "cls": lambda: (f"{b}cls_token", _LEAD2),
+           "pos": lambda: (f"{b}pos_embed", _LEAD),
+           "ln_final": lambda: norm(f"{b}norm")}
+    if name in top:
+        return top[name]()
+    if m := re.match(r"block_(\d+)$", name):
+        lb, sub = f"{b}blocks.{m[1]}", p[1]
+        if sub in ("ls1", "ls2"):
+            return f"{lb}.{sub}.gamma", _ID
+        return (norm if sub.startswith("ln") else lin)(f"{lb}.{_DINO_BLOCK[sub]}")
+    raise KeyError(f"unmapped DINOv2 param {'/'.join(p)}")
+
+
+def dinov2_state_dict(tree: Mapping[str, Any]):
+    """Flax `DinoV2` params -> the port's `DinoV2` state dict (the torch-hub
+    names that `convert_dinov2_hub` reads)."""
+    return _bridge(tree, lambda path: _dino_key(_strip(path), ""))
+
+
+def dinov2_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, lambda path: _dino_key(_strip(path), ""))
+
+
+# ---- Depth-Anything-V2 (convert.py `_da2_key`) ------------------------------
 
 def _depth_key(path: tuple[str, ...]):
     """The official checkpoint's names: the DINOv2 backbone under
-    `pretrained.` (fused qkv, `ls{1,2}.gamma`), the DPT head under
-    `depth_head.`; its 4x / 2x transposed convs (JAX (kH, kW, O, I) <->
-    torch (I, O, kH, kW), `t_convT4`) take the conv permutation."""
+    `pretrained.`, the DPT head under `depth_head.`; its 4x / 2x transposed
+    convs (JAX (kH, kW, O, I) <-> torch (I, O, kH, kW), `t_convT4`) take
+    the conv permutation."""
     p = _strip(path)
     conv, lin, norm = _kinds(p[-1])
     if p[0] == "backbone":
-        b, name = "pretrained", p[1]
-        top = {"patch_embed": lambda: conv(f"{b}.patch_embed.proj"),
-               "cls": lambda: (f"{b}.cls_token", _LEAD2),
-               "pos": lambda: (f"{b}.pos_embed", _LEAD),
-               "ln_final": lambda: norm(f"{b}.norm")}
-        if name in top:
-            return top[name]()
-        if m := re.match(r"block_(\d+)$", name):
-            lb, sub = f"{b}.blocks.{m[1]}", p[2]
-            if sub in ("ls1", "ls2"):
-                return f"{lb}.{sub}.gamma", _ID
-            return (norm if sub.startswith("ln") else lin)(f"{lb}.{_DINO_BLOCK[sub]}")
-    elif p[0] == "head":
+        return _dino_key(p[1:], "pretrained.")
+    if p[0] == "head":
         h, name = "depth_head", p[1]
         if m := re.match(r"proj_(\d)$", name):
             return conv(f"{h}.projects.{m[1]}")
@@ -379,6 +399,77 @@ def depth_state_dict(tree: Mapping[str, Any]):
 
 def depth_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
     return _to_tree(like, sd, _depth_key)
+
+
+# ---- HED (convert.py `_hed_key`) --------------------------------------------
+
+def _hed_key(path: tuple[str, ...]):
+    """ControlNetHED_Apache2's names: `norm` (1, 3, 1, 1), `b{s}_conv{i}` as
+    `block{s + 1}.convs.{i}`, `b{s}_proj` as `block{s + 1}.projection`."""
+    p = _strip(path)
+    if p[0] == "norm":
+        return "norm", (lambda w: w.reshape(1, 3, 1, 1), lambda w: w.reshape(3))
+    conv, _, _ = _kinds(p[-1])
+    if m := re.match(r"b(\d)_conv(\d)$", p[0]):
+        return conv(f"block{int(m[1]) + 1}.convs.{m[2]}")
+    if m := re.match(r"b(\d)_proj$", p[0]):
+        return conv(f"block{int(m[1]) + 1}.projection")
+    raise KeyError(f"unmapped HED param {'/'.join(path)}")
+
+
+def hed_state_dict(tree: Mapping[str, Any]):
+    """Flax `HED` params -> the port's `HED` state dict."""
+    return _bridge(tree, _hed_key)
+
+
+def hed_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _hed_key)
+
+
+# ---- UperNet on Swin (convert.py `convert_upernet_swin`) ----------------------
+
+_SEG_HEAD = {"ppm_out": "bottleneck", "fuse": "fpn_bottleneck", "cls": "classifier"}
+
+
+def _seg_key(path: tuple[str, ...]):
+    """The backbone's JAX Swin leaves under the port's Swin names
+    (`_swin_key`, prefix `backbone.`: the tree's own layout, not
+    GroundingDINO's checkpoint); the head's folded convs under HF
+    UperNetHead's names (`ppm_{i}` as `psp_modules.{i}`, `lat_{i}` as
+    `lateral_convs.{i}`, `fpn_{i}` as `fpn_convs.{i}`)."""
+    p = _strip(path)
+    if p[0] == "backbone":
+        return _swin_key(p[1:], "backbone.")
+    conv, _, _ = _kinds(p[-1])
+    name = p[1]
+    if m := re.match(r"(ppm|lat|fpn)_(\d+)$", name):
+        sub = {"ppm": "psp_modules", "lat": "lateral_convs", "fpn": "fpn_convs"}[m[1]]
+        return conv(f"decode_head.{sub}.{m[2]}")
+    if name in _SEG_HEAD:
+        return conv(f"decode_head.{_SEG_HEAD[name]}")
+    raise KeyError(f"unmapped UperNet param {'/'.join(path)}")
+
+
+def seg_state_dict(tree: Mapping[str, Any]):
+    """Flax `UperNetSegmenter` params -> the port's `UperNetSegmenter` state dict."""
+    return _bridge(tree, _seg_key)
+
+
+def seg_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _seg_key)
+
+
+# ---- AnyDoor's DINOv2 projector (convert.py `convert_anydoor_projector`) ------
+
+def _linear_key(path: tuple[str, ...]):
+    """A lone Dense (the JAX zoo's `_Proj`: {"Dense_0": {kernel, bias}}) as a
+    bare nn.Linear."""
+    return ("weight", _LINEAR) if path[-1] == "kernel" else ("bias", _ID)
+
+
+def linear_state_dict(tree: Mapping[str, Any]):
+    """Flax `_Proj` params -> an nn.Linear state dict (`weight`, `bias`)."""
+    return _bridge(tree, _linear_key)
 
 
 # ---- VAE (convert.py `_vae_key`) --------------------------------------------

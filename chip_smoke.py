@@ -2,8 +2,10 @@
 kernel, the scorers, one record through the factory executor, the
 inpainting, geometry and outpainting edits, one chunk through the
 executor's chunk mode, one SD3-UltraEdit record, one record of each
-caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux), and the SDXL
-refine stack (implicit_change with all four stages, material_transfer).
+caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux), the SDXL
+refine stack (implicit_change with all four stages, material_transfer),
+and one record of each of the last eight edit types (the five visual
+conditions, rotation_change, composition, visual_reference through AnyDoor).
 
     python3 chip_smoke.py
 
@@ -194,6 +196,32 @@ at box_threshold 0.0, freed after):
      at (20, 1024, 64) carries both records' launches; K2 gets a row at each
      shape these paths launched it that no earlier row holds
      (`new_k2_rows`), and an earlier row gains their launches.
+After `sdxl reference`, `visual reference` holds the tiny `hed_fn()` (fp32
+everywhere: within 1e-3), `seg_fn()` (the rendered map within twice the
+CPU bf16's differing share, at least 2 %), one `composition_fn()` and one
+`anydoor()` call (the ControlNet's zero convs drawn live), noise passed in,
+in bf16 on the card against fp32 on the CPU, within twice the CPU's own
+bf16 distance. After phase 20, on a zoo of its own (the production
+`ZooConfig` at box_threshold 0.0, freed after):
+ 21. visual: the grounder, HED, UperNet on Swin-T, Depth-Anything-V2,
+     Canny, SD15_UNET with the SD VAE and CLIP-L (composition),
+     SD21_ANYDOOR_UNET with its ControlNet (zero convs live), DINOV2_G at
+     224 px and the projection (AnyDoor), seeded at published widths
+     (`visual_toolbox`); one 480x640 record of each of VISUAL_TYPES through
+     `FactoryExecutor` with the gates open, the grounder's answer on the
+     target and the reference replaced by a synthetic interior detection
+     (the real grounding still runs): the five condition types give the
+     image as the edit and a condition map, rotation_change the capture
+     pair and a left turn, composition a 512 px frame, visual_reference
+     the target's bytes outside the mask; K1 0 everywhere but
+     visual_reference, which launches exactly ANYDOOR_K1 (350 at (10, 4096,
+     64), 350 at (20, 1024, 64)); K2 tallied by shape. Each record's
+     seconds, peak GiB and device-busy share (one more run of the record
+     under `torch.profiler`, device events only). Then the AnyDoor UNet +
+     ControlNet call at batch 2 in ms beside `sdxl_bound_ms`. The kernels
+     phase holds K1 at (10, 4096, 64) (its row carries the record's launches
+     at that shape; the (20, 1024, 64) row gains `launches_anydoor`), and K2
+     gets a row at each new shape these paths launched it (`new_k2_rows`).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -268,7 +296,7 @@ BUCKET_TYPES = ("color_alter",) * 4
 SLICE_K1 = [((48, 4096, 40), "chunk"), ((48, 1024, 80), "chunk"),
             ((96, 4096, 40), "bucket"), ((96, 1024, 80), "bucket"),
             ((16, 4096, 40), "sd"), ((16, 1024, 80), "sd"),
-            ((20, 1024, 64), "sdxl_implicit")]
+            ((20, 1024, 64), "sdxl_implicit"), ((10, 4096, 64), "anydoor")]
 # K2 in one SD3 VAE encode and decode of a 512 px canvas at batch 1, bf16
 # (52 launches: 22 in the encoder, 30 in the decoder; without SiLU only at
 # the mid-block attention's norm)
@@ -296,7 +324,10 @@ PATHS = {"chunk": "chunk of 4 (2 color_alter edits batched: the UNet at batch 6;
                       "and decode at batch 1)",
          "sdxl_implicit": "implicit_change record with all four stages (the SDXL UNet's "
                           "and the ControlNet's level-1 self-attention at batch 2: 10 x 64 "
-                          "heads of 1,024 tokens)"}
+                          "heads of 1,024 tokens)",
+         "anydoor": "visual_reference record (AnyDoor: the SD2.1-class UNet's and its "
+                    "ControlNet's level-0 self-attention at batch 2: 5 x 64 heads of 4,096 "
+                    "tokens)"}
 K2_TALLY_PATHS = ("geometry", "ultraedit")
 # The geometry records (resize, movement, relation, outpainting) and their
 # two drawn objects (xyxy in a 480x640 image): the edited one covers 15.6 %
@@ -1913,7 +1944,8 @@ def check_synth_reference(dev):
 def synth_executor(tb, records, img, grounding_batch: int = 0):
     """`records` through `FactoryExecutor` with both gates open (no
     pre-filter), in one run: (ledger lines, seconds, K1 / K2 launches, K2's
-    tally). Every count is set to 0 just before the run."""
+    tally). A success's frames, visual input and mask are decoded into the
+    line. Every count is set to 0 just before the run."""
     import torch
     from anyedit_tpu_torch.ops.attention import flash_nomax
     from anyedit_tpu_torch.ops.groupnorm import group_norm
@@ -1939,6 +1971,9 @@ def synth_executor(tb, records, img, grounding_batch: int = 0):
                 source = (decode_png(Path(pay["input_file"]).read_bytes())
                           if "input_file" in pay else None)
                 line["frames"] = (source, edited)
+                for k in ("visual_input", "mask"):
+                    if f"{k}_file" in pay:
+                        line[k] = decode_png(Path(pay[f"{k}_file"]).read_bytes())
     return lines, seconds, launches, dict(tally)
 
 
@@ -2449,6 +2484,330 @@ def new_k2_rows(dev, tallies: dict, held: set) -> tuple[list, dict]:
                                for p in tallies}), seen
 
 
+# ---- the visual conditions, rotation, composition and AnyDoor ------------------
+VC_TYPES = ("visual_bbox", "visual_depth", "visual_scribble", "visual_segment",
+            "visual_sketch")
+VISUAL_TYPES = VC_TYPES + ("rotation_change", "composition", "visual_reference")
+VISUAL_RECORD = {"edit": "put the teddy bear on the chair", "edited object": "chair",
+                 "ref_object": "teddy bear", "input": "a chair in a room",
+                 "output": "a teddy bear on a chair in a room", "visual_input": "bear.png"}
+COMPOSITION_PLAN = ("global: a sunny park with a pond and tall trees\n"
+                    "region: 0.0,0.3,0.45,1.0 | a brown dog sitting on the grass\n"
+                    "region: 0.55,0.0,1.0,0.4 | a red kite in the blue sky\n"
+                    "region: 0.5,0.55,0.95,0.95 | a wooden bench")
+# the drawn objects (xyxy) of the 480x640 target and the 512 px reference
+VISUAL_BOXES = {"target": (220, 150, 420, 380), "reference": (96, 120, 400, 440)}
+# K1 in one AnyDoor record: 50 steps x (the UNet's 5 + the ControlNet's 2
+# self-attention sites) at each of (10, 4096, 64) and (20, 1024, 64) (5 and
+# 10 heads of 64 at CFG batch 2); the VAE's 512-wide mid attention and
+# DINOv2's 257 tokens are off K1's route
+ANYDOOR_K1 = {(10, 4096, 64): 50 * 7, (20, 1024, 64): 50 * 7}
+VISUAL_PATHS = {"visual_condition": "the five visual_* condition records (HED, UperNet on "
+                                    "Swin-T, Depth-Anything-V2, Canny, one grounding)",
+                "rotation": "rotation_change record (numpy only)",
+                "composition": "composition record (regional cross-attention, 50 steps: the "
+                               "SD1.5 UNet at batch 2; the SD VAE decode at batch 1)",
+                "anydoor": "visual_reference record (AnyDoor, 50 steps: the SD2.1-class UNet "
+                           "and its ControlNet at batch 2, 5 heads of 64 over 4,096 tokens; "
+                           "the SD VAE decode at batch 1)"}
+
+
+@contextlib.contextmanager
+def k1_tally():
+    """K1's launches inside the block by (BH, L, D): `attention` reaches K1
+    through the module's `flash_nomax`, which is wrapped for the block."""
+    import collections
+    from anyedit_tpu_torch.ops import attention as attn_mod
+
+    real = attn_mod.flash_nomax
+    tally = collections.Counter()
+
+    class Spy:
+        """Calls K1's wrapper; its `launches` is the wrapper's own."""
+
+        def __call__(self, q, k, v, scale):
+            n0 = real.launches
+            out = real(q, k, v, scale)
+            if real.launches > n0:
+                tally[tuple(q.shape)] += 1
+            return out
+
+        launches = property(lambda self: real.launches,
+                            lambda self, n: setattr(real, "launches", n))
+    attn_mod.flash_nomax = Spy()
+    try:
+        yield tally
+    finally:
+        attn_mod.flash_nomax = real
+
+
+def device_busy_ms(fn) -> float:
+    """Device milliseconds of one `fn()` under `torch.profiler` recording the
+    device's events only (kernels, copies, sets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        if e.device_type == DeviceType.CUDA and t > 0:
+            us += t
+    return us / 1e3
+
+
+def check_visual_reference(dev):
+    """The tiny visual slots in bf16 on the card against fp32 on the CPU,
+    beside the CPU's own bf16, with the same weights (the AnyDoor ControlNet's
+    zero convs drawn live) and noise: `hed_fn()` (fp32 on every side: within
+    1e-3), `seg_fn()` (the rendered map differs on at most twice the CPU
+    bf16's share, at least 2 %), one `composition_fn()` and one `anydoor()`
+    call (within twice the CPU's own bf16 distance)."""
+    import torch
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+
+    tiny = tiny_zoo_config()
+    r = dataclasses.replace
+
+    def cfg(dtype):
+        return r(tiny, sd_unet=r(tiny.sd_unet, dtype=dtype), vae=r(tiny.vae, dtype=dtype),
+                 text=r(tiny.text, dtype=dtype), anydoor_unet=r(tiny.anydoor_unet, dtype=dtype),
+                 dino_cfg=r(tiny.dino_cfg, dtype=dtype),
+                 seg_cfg=r(tiny.seg_cfg, dtype=dtype,
+                           backbone=r(tiny.seg_cfg.backbone, dtype=dtype)))
+
+    def models(z):
+        z.hed_fn(), z.seg_fn()
+        return (z._sd_core()[0], z._vae(), z._text_model("clip_text", z.cfg.text),
+                *z._anydoor_core()[:3], z._dino(), z._cache["hed_model"], z._cache["seg_model"])
+
+    zoos = {"ref": ModelZoo(cfg(torch.float32), "cpu", seed=0),
+            "cpu16": ModelZoo(cfg(torch.bfloat16), "cpu", seed=0),
+            "card16": ModelZoo(cfg(torch.bfloat16), dev, seed=0)}
+    live_zero_convs_(zoos["ref"]._anydoor_core()[1], 41)
+    for k in ("cpu16", "card16"):
+        for src, dst in zip(models(zoos["ref"]), models(zoos[k])):
+            dst.load_state_dict(src.state_dict())
+    rng = np.random.default_rng(27)
+    img = rng.integers(0, 256, (48, 40, 3), np.uint8)
+    ref_img = rng.integers(0, 256, (40, 44, 3), np.uint8)
+    mask = np.zeros((48, 40), bool)
+    mask[10:34, 8:30] = True
+    hf = rng.uniform(0, 300, (48, 40)).astype(np.float32)
+    noise = torch.from_numpy(rng.standard_normal((1, 32, 32, 4)).astype(np.float32))
+    plan = COMPOSITION_PLAN
+
+    outs = {k: {"hed": z.hed_fn()(img), "seg": z.seg_fn()(img),
+                "composition": z.composition_fn()(plan, 0, steps=4, noise=noise),
+                "anydoor": z.anydoor()(img, mask, img, hf, ref_img, steps=4, noise=noise)}
+            for k, z in zoos.items()}
+    hed_err = float(np.abs(outs["card16"]["hed"] - outs["ref"]["hed"]).max())
+    miss = {k: float((outs[k]["seg"] != outs["ref"]["seg"]).any(-1).mean())
+            for k in ("cpu16", "card16")}
+    print(f"tiny hed vs CPU fp32: card max {hed_err:.3e}; tiny seg map differs on "
+          f"{miss['cpu16']:.4f} (cpu16) / {miss['card16']:.4f} (card16)", flush=True)
+    require(hed_err <= 1e-3, "the card's HED is within 1e-3 of the CPU's")
+    require(miss["card16"] <= 2 * max(miss["cpu16"], 0.02),
+            "the card's segmentation map is within twice the CPU's bf16 distance")
+    for what in ("composition", "anydoor"):
+        ref = outs["ref"][what].astype(np.int32)
+        err = {k: np.abs(outs[k][what].astype(np.int32) - ref) for k in ("cpu16", "card16")}
+        print(f"tiny {what} vs CPU fp32: " + ", ".join(
+            f"{k} uint8 max diff {e.max()} mean {e.mean():.4f}" for k, e in err.items()),
+            flush=True)
+        require(outs["card16"][what].shape == ref.shape, f"tiny {what}: the frame's shape")
+        require(err["card16"].max() <= 2 * max(err["cpu16"].max(), 1)
+                and err["card16"].mean() <= 2 * max(err["cpu16"].mean(), 0.5),
+                f"the card's bf16 {what} is within twice the CPU's bf16 error")
+    require(np.abs(outs["ref"]["anydoor"].astype(np.int32) - img)[mask].mean() > 1.0
+            and (outs["card16"]["anydoor"][~mask] == img[~mask]).all(),
+            "tiny anydoor changes the masked region and keeps the rest")
+
+
+def visual_toolbox(dev):
+    """The visual slots at published widths on the production `ZooConfig`
+    (box_threshold 0.0), seeded: the grounder, HED, UperNet on Swin-T,
+    Depth-Anything-V2, Canny, the composition slot (SD15_UNET, the SD VAE,
+    CLIP-L) and AnyDoor (SD21_ANYDOOR_UNET, its ControlNet with live zero
+    convs, DINOV2_G at 224 px, the projection). The grounder's answer on the
+    target and on the reference is replaced by a synthetic detection of the
+    drawn object (the real grounding still runs), an interior mask, so that
+    the completeness gate passes. A seeded 512 px reference behind
+    `tb.extra["load_visual"]`, and a `load_rotation_pair` of two seeded
+    frames 30 degrees of yaw apart. Returns (zoo, tb, target image)."""
+    import torch
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.grounding.maskgen import MAX_BOXES, grounding_result
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+
+    zoo = ModelZoo(ZooConfig(box_threshold=0.0), dev, seed=0)
+    g = np.random.default_rng(28)
+    img = g.integers(0, 256, GROUND_HW + (3,), np.uint8)
+    ref = g.integers(0, 256, (512, 512, 3), np.uint8)
+    for im, (x1, y1, x2, y2), colour in ((img, VISUAL_BOXES["target"], (150, 90, 40)),
+                                         (ref, VISUAL_BOXES["reference"], (180, 120, 60))):
+        im[y1:y2, x1:x2] = colour
+    boxes = {id(img): VISUAL_BOXES["target"], id(ref): VISUAL_BOXES["reference"]}
+    real = zoo.grounder()
+
+    def ground(image, phrase, mode="merge", count_k=None):
+        out = real(image, phrase, mode=mode, count_k=count_k)
+        if id(image) not in boxes:
+            return out
+        h, w = image.shape[:2]
+        x1, y1, x2, y2 = boxes[id(image)]
+        masks = torch.full((MAX_BOXES, h, w), -1.0, device=dev)
+        masks[0, y1:y2, x1:x2] = 1.0
+        bx = torch.zeros((MAX_BOXES, 4), device=dev)
+        bx[0] = torch.tensor([x1, y1, x2, y2], dtype=torch.float32)
+        scores = torch.zeros((MAX_BOXES,), device=dev)
+        valid = torch.zeros((MAX_BOXES,), dtype=torch.bool, device=dev)
+        scores[0], valid[0] = 0.9, True
+        return grounding_result(masks, bx, scores, valid, (h, w), mode, count_k)
+
+    tb = Toolbox(ground=ground)
+    for slot in ("hed", "seg", "depth", "canny", "composition", "anydoor"):
+        zoo.install(tb, slot)
+    live_zero_convs_(zoo._anydoor_core()[1], 42)
+    yaw = [np.array([np.cos(a / 2), 0.0, np.sin(a / 2), 0.0]) for a in (0.0, np.radians(30))]
+    frames = g.integers(0, 256, (2,) + GROUND_HW + (3,), np.uint8)
+    tb.extra["load_visual"] = lambda rec: ref
+    tb.extra["load_rotation_pair"] = lambda rec: (frames[0], frames[1], yaw[0], yaw[1])
+    return zoo, tb, img
+
+
+def visual_record(dev, tb, img, edit_type: str, size: int):
+    """One record of `edit_type` through `synth_executor` (gates open), K1
+    tallied by shape, then the same record once more under the profiler
+    (device events only) for its device-busy share of the record's seconds.
+    Checks the outcome. Returns a dict of the numbers, the launches and the
+    K1 / K2 tallies."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+
+    fields = dict(VISUAL_RECORD, edit_type=edit_type, id=edit_type)
+    if edit_type == "composition":
+        fields["canvas_plan"] = COMPOSITION_PLAN
+    rec = InstructionRecord.from_json(fields)
+    torch.cuda.reset_peak_memory_stats()
+    with k1_tally() as k1:
+        (line,), seconds, launches, tally = synth_executor(tb, [rec], img)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(line["status"] == "success" and "frames" in line,
+            f"the {edit_type} record succeeded through the executor ({line})")
+    src, out = line["frames"]
+    if edit_type in VC_TYPES:
+        vis = line["visual_input"]
+        require(np.array_equal(out, img) and vis.shape == img.shape and vis.any(),
+                f"{edit_type}: the edit is the image and the condition a {img.shape} map")
+    elif edit_type == "rotation_change":
+        frames = tb.extra["load_rotation_pair"](rec)
+        require(np.array_equal(src, frames[0]) and np.array_equal(out, frames[1])
+                and line["record"]["edit"].endswith("to the left"),
+                "rotation_change: the capture pair and a left turn")
+    elif edit_type == "composition":
+        require(out.shape == (size, size, 3) and out.std() > 1.0,
+                "composition: a canvas frame that is not flat")
+    else:
+        mask = line["mask"] > 0
+        require(out.shape == img.shape and np.array_equal(out[~mask], img[~mask])
+                and np.abs(out[mask].astype(np.int32) - img[mask]).mean() > 1.0,
+                "visual_reference: the target's bytes outside the mask, changed inside")
+    k1_want = ANYDOOR_K1 if edit_type == "visual_reference" else {}
+    require(dict(k1) == k1_want and launches["flash_nomax"] == sum(k1_want.values()),
+            f"{edit_type} launched K1 {dict(k1)}, want {k1_want}")
+    require(sum(tally.values()) == launches["group_norm"]
+            and (launches["group_norm"] > 0) == (edit_type in ("composition",
+                                                              "visual_reference",
+                                                              "visual_bbox")),
+            f"{edit_type}: K2 launched {launches['group_norm']} times, all tallied")
+    # the executor left its grounding memo on `tb.ground`, holding this
+    # record's groundings: profile the pipeline on the grounder under it
+    fresh = dataclasses.replace(tb, ground=getattr(tb.ground, "_real", tb.ground))
+    pipeline = get_pipeline(edit_type)
+    busy = device_busy_ms(lambda: pipeline(fresh, InstructionRecord.from_json(fields), img,
+                                           np.random.default_rng(0)))
+    nums = {"record_s": seconds, "peak_gib": peak, "busy_ms": busy,
+            "busy_share": busy / (seconds * 1e3)}
+    print(f"{edit_type} record through FactoryExecutor (gates open): {seconds:.3f} s, device "
+          f"busy {busy:.1f} ms ({nums['busy_share'] * 100:.1f} %), peak {peak:.2f} GiB; "
+          f"launches {launches}; K1 by shape {dict(k1)}; K2 at {len(tally)} shapes", flush=True)
+    return nums, launches, dict(k1), tally
+
+
+def anydoor_unet_inputs(zoo, dev):
+    """One AnyDoor denoiser call's inputs at batch 2 (CFG): seeded latents,
+    t = 500, a seeded DINOv2-width context through the projection (cond and
+    zeros) and a seeded 4-channel hint at 8x the latent size."""
+    import torch
+
+    c = zoo.cfg
+    hw = c.canvas.edit_size // c.canvas.latent_down
+    n_tok = (c.dino_cfg.img_size // c.dino_cfg.patch) ** 2 + 1
+    g = torch.Generator(device=dev).manual_seed(29)
+    _, _, proj, _ = zoo._anydoor_core()
+    with torch.inference_mode():
+        ctx1 = proj(torch.randn(1, n_tok, c.dino_cfg.dim, generator=g, device=dev))
+    return (torch.randn(2, hw, hw, 4, generator=g, device=dev), torch.full((2,), 500, device=dev),
+            torch.cat([ctx1, torch.zeros_like(ctx1)]).to(torch.bfloat16),
+            torch.rand(2, hw * 8, hw * 8, 4, generator=g, device=dev))
+
+
+def visual_phase(dev):
+    """On `visual_toolbox`: one record of each of VISUAL_TYPES through
+    `FactoryExecutor` (`visual_record`), then the AnyDoor UNet + ControlNet
+    call at batch 2 in ms (CUDA events) beside `sdxl_bound_ms`. Returns
+    ({path: (launches, K2 tally)}, {path: K1 tally}, numbers)."""
+    import collections
+
+    import torch
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+
+    t0 = time.perf_counter()
+    zoo, tb, img = visual_toolbox(dev)
+    torch.cuda.synchronize()
+    nums = {"build_s": time.perf_counter() - t0}
+    paths, k1s = {}, {}
+    for et in VISUAL_TYPES:
+        path = ("anydoor" if et == "visual_reference" else "rotation" if et == "rotation_change"
+                else "composition" if et == "composition" else "visual_condition")
+        n, launches, k1, tally = visual_record(dev, tb, img, et, zoo.cfg.canvas.edit_size)
+        nums[et] = n
+        prev = paths.get(path, (collections.Counter(), collections.Counter()))
+        paths[path] = (collections.Counter(prev[0]) + collections.Counter(launches),
+                       collections.Counter(prev[1]) + collections.Counter(tally))
+        k1s[path] = collections.Counter(k1s.get(path, {})) + collections.Counter(k1)
+    for path in paths:        # keep zero counts: Counter addition drops them
+        paths[path] = ({k: paths[path][0].get(k, 0) for k in ("flash_nomax", "group_norm")},
+                       dict(paths[path][1]))
+
+    unet, cn, _, _ = zoo._anydoor_core()
+    x, t, ctx2, hint2 = anydoor_unet_inputs(zoo, dev)
+
+    def call():
+        res, mid = cn(x, t, ctx2, hint2)
+        return unet(x, t, ctx2, controlnet_residuals=res, controlnet_mid=mid)
+    with torch.inference_mode():
+        out = call()
+        require(out.isfinite().all() and out.shape == x.shape,
+                "the AnyDoor UNet's output is finite")
+        nums["unet_cn_ms"] = time_ms(call, iters=5)
+    nums["unet_cn_busy_ms"] = device_busy_ms(call)
+    nums["bound_ms"], nums["bound_by"], nums["tflop"] = sdxl_bound_ms([unet, cn], call)
+    print(f"AnyDoor UNet + ControlNet call at batch 2 ({x.shape[1]} x {x.shape[2]} latents, "
+          f"{ctx2.shape[1]} context tokens): {nums['unet_cn_ms']:.3f} ms (device busy "
+          f"{nums['unet_cn_busy_ms']:.3f} ms) against a bound of {nums['bound_ms']:.3f} ms "
+          f"({nums['bound_by']}: {nums['tflop']:.3f} TFLOP); build {nums['build_s']:.2f} s",
+          flush=True)
+    del tb, zoo, unet, cn, call
+    return paths, k1s, nums
+
+
 
 def main() -> int:
     import torch
@@ -2500,6 +2859,9 @@ def main() -> int:
 
     with phase("sdxl reference"):
         check_sdxl_reference(dev)
+
+    with phase("visual reference"):
+        check_visual_reference(dev)
 
     with phase("lama"):
         lama_err, lama_ms = check_lama(dev)
@@ -2634,6 +2996,23 @@ def main() -> int:
         held |= {key for *_, key in synth_rows}
         sdxl_rows, sdxl_seen = new_k2_rows(dev, {p: t for p, (_, t) in sdxl_paths.items()},
                                            held)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the visual conditions, rotation, composition and AnyDoor on a zoo of
+    # their own (freed after)
+    with phase("visual"):
+        visual_paths, visual_k1, vx = visual_phase(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{card_line}: " + ", ".join(
+            f"{et} {vx[et]['record_s']:.3f} s (busy {vx[et]['busy_share'] * 100:.1f} %, peak "
+            f"{vx[et]['peak_gib']:.2f} GiB)" for et in VISUAL_TYPES)
+            + f"; AnyDoor UNet + ControlNet at batch 2 {vx['unet_cn_ms']:.3f} ms (bound "
+            f"{vx['bound_ms']:.3f} ms)", flush=True)
+        held |= {key for *_, key in sdxl_rows}
+        visual_rows, visual_seen = new_k2_rows(
+            dev, {p: t for p, (_, t) in visual_paths.items() if t}, held)
 
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2671,6 +3050,9 @@ def main() -> int:
     kernels[0]["launches_ultraedit"] = u_launches["flash_nomax"]
     for path, (launches_p, _) in list(synth_paths.items()) + list(sdxl_paths.items()):
         kernels[0][f"launches_{path}"] = launches_p["flash_nomax"]
+    for path, (launches_p, _) in visual_paths.items():
+        for row in kernels[:2]:
+            row[f"launches_{path}"] = launches_p[row["name"]]
     # this slice's shapes, each its own row, with the kernel's launches in
     # the run of the path that gives it that shape (at that shape, for
     # K2_TALLY_PATHS)
@@ -2684,10 +3066,13 @@ def main() -> int:
             row = entry(name, *sources[name], tallied[key + (path,)], [(tag, r)])
             if path == "geometry":
                 row["launches_ultraedit"] = tallied.get(key + ("ultraedit",), 0)
+        elif path == "anydoor":           # K1 at its shape: the tally's
+            row = entry(name, *sources[name], visual_k1["anydoor"].get(key[0], 0), [(tag, r)])
         else:
             row = entry(name, *sources[name], path_launches[path][name], [(tag, r)])
         if path == "sdxl_implicit":
             row["launches_sdxl_material"] = sdxl_paths["sdxl_material"][0][name]
+            row["launches_anydoor"] = visual_k1["anydoor"].get(key[0], 0)
         row["path"] = PATHS[path]
         kernels.append(row)
         if name == "group_norm":
@@ -2696,14 +3081,14 @@ def main() -> int:
     # launches at its shape in the first path that gives it, and in the
     # others; a shape an earlier row holds gains the refine paths' launches
     path_names = {**{p: d for p, (_, d) in SYNTH_PATHS.items()},
-                  **{p: d for p, (_, d) in SDXL_PATHS.items()}}
-    for tag, r, path, per_path, key in synth_rows + sdxl_rows:
+                  **{p: d for p, (_, d) in SDXL_PATHS.items()}, **VISUAL_PATHS}
+    for tag, r, path, per_path, key in synth_rows + sdxl_rows + visual_rows:
         row = entry("group_norm", *sources["group_norm"], per_path[path], [(tag, r)])
         row.update({f"launches_{p}": n for p, n in per_path.items() if p != path})
         row["path"] = path_names[path]
         kernels.append(row)
         k2_by_key[key] = row
-    for key, per_path in sdxl_seen.items():
+    for key, per_path in list(sdxl_seen.items()) + list(visual_seen.items()):
         k2_by_key[key].update({f"launches_{p}": n for p, n in per_path.items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

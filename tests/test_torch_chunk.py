@@ -325,7 +325,9 @@ def test_first_ground_table_is_the_served_types():
     for et in EDIT_PIPELINES:
         assert executor._FIRST_GROUND.get(et) == jexecutor._FIRST_GROUND.get(et), et
     assert set(EDIT_PIPELINES) - set(executor._FIRST_GROUND) == {
-        "tone_transfer", "style_change", "action_change", "implicit_change", "textual_change"}
+        "tone_transfer", "style_change", "action_change", "implicit_change", "textual_change",
+        "visual_depth", "visual_scribble", "visual_segment", "visual_sketch", "composition",
+        "rotation_change"}
 
 
 def test_failed_memo_grounding_gets_no_batched_edit(tmp_path):

@@ -178,14 +178,18 @@ def test_color_alter_object_not_found(zoo_pair):
 def test_registry_names_what_is_ported():
     assert get_pipeline("color_alter") is global_.color_alter
     assert get_pipeline("tone_transfer") is global_.tone_transfer
-    with pytest.raises(KeyError, match="ported: \\['action_change', 'add', "
+    with pytest.raises(KeyError, match="have: \\['action_change', 'add', "
                                        "'appearance_alter', 'background_change', "
-                                       "'color_alter', 'counting', 'implicit_change', "
-                                       "'material_alter', 'material_transfer', 'movement', "
-                                       "'outpainting', 'relation', 'remove', 'replace', "
-                                       "'resize', 'style_change', 'textual_change', "
-                                       "'tone_transfer', 'visual_material_transfer'\\]"):
-        get_pipeline("composition")
+                                       "'color_alter', 'composition', 'counting', "
+                                       "'implicit_change', 'material_alter', "
+                                       "'material_transfer', 'movement', 'outpainting', "
+                                       "'relation', 'remove', 'replace', 'resize', "
+                                       "'rotation_change', 'style_change', 'textual_change', "
+                                       "'tone_transfer', 'visual_bbox', 'visual_depth', "
+                                       "'visual_material_transfer', 'visual_reference', "
+                                       "'visual_scribble', 'visual_segment', "
+                                       "'visual_sketch'\\]"):
+        get_pipeline("no_such_type")
 
 
 def test_grounder_on_the_card_raises_without_cuda(monkeypatch):

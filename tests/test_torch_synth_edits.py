@@ -62,8 +62,7 @@ STEPS = {"masactrl_pair": 3, "p2p_pair": 2, "flux_pair": 4}
 FRAME_MAX, FRAME_MEAN = 1, 0.01
 TYPES = ("action_change", "implicit_change", "textual_change")
 # the reference's edit types whose slots are not ported yet (ROADMAP queue 1)
-QUEUED = {"visual_bbox", "visual_depth", "visual_scribble", "visual_segment",
-          "visual_sketch", "visual_reference", "composition", "rotation_change"}
+QUEUED: set = set()
 RECORDS = {
     "action_change": {"edit": "make the dog jump", "input": "a dog sitting on grass",
                       "output": "a dog jumping on grass", "edited object": "dog"},
@@ -260,11 +259,12 @@ def test_textual_change_ocr_gate():
 
 
 def test_registry_keys_match_jax():
-    """The port resolves every type of the JAX registry but the queued ones."""
-    assert set(EDIT_PIPELINES) == set(JAX_PIPELINES) - QUEUED
-    assert QUEUED <= set(JAX_PIPELINES)
-    for et in TYPES:
-        assert get_pipeline(et).__name__ == jax_get_pipeline(et).__name__
+    """The port's registry equals the JAX one: every type, each with a
+    pipeline of the same name."""
+    assert not QUEUED
+    assert set(EDIT_PIPELINES) == set(JAX_PIPELINES)
+    for et in JAX_PIPELINES:
+        assert get_pipeline(et).__name__ == jax_get_pipeline(et).__name__, et
 
 
 # ---- both executors -----------------------------------------------------------------

@@ -16,6 +16,7 @@
     python3 tools/bench_torch_ip2p.py --masactrl   # MasaCtrl / P2P: UNet b4, two records
     python3 tools/bench_torch_ip2p.py --flux       # Flux-schnell: call, pair, textual_change
     python3 tools/bench_torch_ip2p.py --sdxl       # SDXL refine stack: UNet b2, two records
+    python3 tools/bench_torch_ip2p.py --visual     # AnyDoor / composition UNet b2, 8 records
 
 The workload is `bench.py`'s: 512 px, 50 DDIM steps, 3-way CFG as one
 batch-3n UNet call per step, batch n = 8, VAE encode + decode, seeded
@@ -52,7 +53,17 @@ zero convs drawn live, the IP-Adapter on CLIP-L vision, DEPTH_ANYTHING_L,
 the grounder): one UNet call at batch 2 plain, with the canny ControlNet,
 and with the ControlNet and the IP-Adapter processor, one implicit_change
 record with all four stages and one 480x640 material_transfer record, the
-same way. Every line names the card and its power limit.
+same way. `--visual` times the last slice's edit types at published widths
+(`chip_smoke.visual_toolbox`: the grounder, HED, UperNet on Swin-T,
+Depth-Anything-V2, SD15_UNET, SD21_ANYDOOR_UNET with its ControlNet, zero
+convs drawn live, DINOV2_G at 224 px, the SD VAE): the AnyDoor UNet +
+ControlNet call at batch 2 and the SD1.5 UNet call at batch 2 under the
+regional processor of a three-region canvas plan, each beside its
+`sdxl_bound_ms`, and one 480x640 record of each of the eight types
+(visual_bbox, visual_depth, visual_scribble, visual_segment, visual_sketch,
+rotation_change, composition, visual_reference) through the registry, the
+records profiled on device events only. Every line names the card and its
+power limit.
 """
 
 from __future__ import annotations
@@ -812,6 +823,62 @@ def bench_sdxl(dev, runs: int = 3) -> list[dict]:
     return rows
 
 
+def bench_visual(dev, runs: int = 3) -> list[dict]:
+    """The visual conditions, rotation, composition and AnyDoor at full width
+    (`chip_smoke.visual_toolbox`), as `bench_sdxl` times its parts: the
+    AnyDoor UNet + ControlNet call at batch 2 and the composition UNet call
+    at batch 2 under the regional processor, each with its `sdxl_bound_ms`
+    (ms, "operations" or "bytes", TFLOP), then one record of each of
+    VISUAL_TYPES through the registry. The last row adds the run's peak GiB."""
+    import numpy as np
+    import torch
+    from chip_smoke import (
+        COMPOSITION_PLAN, VISUAL_RECORD, VISUAL_TYPES, anydoor_unet_inputs, sdxl_bound_ms,
+        visual_toolbox,
+    )
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.diffusion.regional import (
+        build_regional_conditioning, parse_canvas_plan,
+    )
+    from anyedit_tpu_torch.edits.registry import get_pipeline
+
+    zoo, tb, img = visual_toolbox(dev)
+    unet, cn, _, _ = zoo._anydoor_core()
+    x, t, ctx2, hint2 = anydoor_unet_inputs(zoo, dev)
+
+    def anydoor_call():
+        res, mid = cn(x, t, ctx2, hint2)
+        return unet(x, t, ctx2, controlnet_residuals=res, controlnet_mid=mid)
+    sd_unet, _ = zoo._sd_core()
+    text = zoo._text_encoder()
+    hw = x.shape[1]
+    gp, regions = parse_canvas_plan(COMPOSITION_PLAN)
+    with torch.inference_mode():
+        ctx, proc = build_regional_conditioning(text, gp, regions, [hw, hw // 2, hw // 4])
+        cctx2 = torch.cat([ctx, torch.cat([text("")] * (1 + len(regions)), dim=1)])
+    cctx2 = cctx2.to(torch.bfloat16)
+
+    def composition_call():
+        return sd_unet(x, t, cctx2, processor=proc)
+
+    def record(et):
+        fields = dict(VISUAL_RECORD, edit_type=et, canvas_plan=COMPOSITION_PLAN)
+        return lambda: get_pipeline(et)(tb, InstructionRecord.from_json(fields), img,
+                                        np.random.default_rng(0))
+    torch.cuda.reset_peak_memory_stats()
+    work = [(f"anydoor unet + controlnet call (SD21_ANYDOOR_UNET, batch 2, {hw} x {hw} "
+             f"latents, {ctx2.shape[1]} tokens)", anydoor_call),
+            (f"composition unet call under the regional processor (SD15_UNET, batch 2, "
+             f"{cctx2.shape[1]} tokens)", composition_call)]
+    work += [(f"{et} record (480x640)", record(et)) for et in VISUAL_TYPES]
+    rows = timed_rows(work, runs, device_only=tuple(label for label, _ in work[2:]))
+    for row, (modules, call) in zip(rows, (([unet, cn], anydoor_call),
+                                           ([sd_unet], composition_call))):
+        row["bound_ms"], row["bound_by"], row["bound_tflop"] = sdxl_bound_ms(modules, call)
+    rows[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -843,12 +910,15 @@ def main() -> int:
     mode.add_argument("--sdxl", action="store_true",
                       help="the SDXL UNet call and the implicit_change and material_transfer "
                            "records instead")
+    mode.add_argument("--visual", action="store_true",
+                      help="the AnyDoor and composition UNet calls and one record of each "
+                           "visual / rotation / composition type instead")
     ap.add_argument("--int8", action="store_true",
                     help="W8A8 int8 UNet (bench.py --int8); VAE and CLIP stay bf16")
     args = ap.parse_args()
     if args.int8 and (args.kernels or args.k1_blocks or args.k2_plans or args.k34_blocks
                       or args.paths or args.ground or args.scorers or args.ultraedit
-                      or args.masactrl or args.flux or args.sdxl):
+                      or args.masactrl or args.flux or args.sdxl or args.visual):
         ap.error("--int8 applies to the bench, --profile and --latency")
     if not torch.cuda.is_available():
         print("bench_torch_ip2p: needs an NVIDIA GPU", file=sys.stderr)
@@ -883,6 +953,8 @@ def main() -> int:
         rows = bench_flux(dev)
     elif args.sdxl:
         rows = bench_sdxl(dev)
+    elif args.visual:
+        rows = bench_visual(dev)
     else:
         rows = [bench_pairs_per_hour(dev, BATCH, args.int8)]
     for row in rows:
