@@ -45,6 +45,16 @@ def _bytes_to_unicode() -> dict[int, str]:
     return dict(zip(bs, (chr(c) for c in cs)))
 
 
+def find_clip_merges(weights_dir) -> Path | None:
+    """The CLIP BPE merges asset in a weights dir (the openai vocab gz or a
+    plain merges dump), or None."""
+    weights_dir = Path(weights_dir)
+    return next((p for p in (weights_dir / "bpe_simple_vocab_16e6.txt.gz",
+                             weights_dir / "clip_merges.txt.gz",
+                             weights_dir / "clip_merges.txt")
+                 if p.exists()), None)
+
+
 class ClipBPETokenizer:
     def __init__(self, merges_path: str | Path):
         p = Path(merges_path)

@@ -77,18 +77,35 @@ def quantize_kernel(kernel: torch.Tensor, out_dim: int = 0
     return quantize_int8(kernel, scale), scale.reshape(-1).float()
 
 
+# `torch._int_mm` raises unless M > 16: fewer rows are padded up to this
+_INT_MM_MIN_ROWS = 32
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact.
 
     CPU tensors contract in float64 (exact below 2^53). CUDA tensors go to
     `torch._int_mm` (cuBLASLt), which raises unless M > 16 and K and N are
-    multiples of 8; the UNet's layers have M >= 231 and K, N multiples of 8.
+    multiples of 8 (the UNet's and the Llamas' K and N are). A smaller M (a
+    decode step at batch 8, a short self-check batch) is padded with zero
+    rows up to _INT_MM_MIN_ROWS and the result sliced back: exact, since a
+    zero row contracts to zero and touches no other row. The rows are padded
+    after quantization, so no zero row reaches an activation scale.
     b is best column-major (a transposed (N, K) weight)."""
     if a.device.type == "cpu":
         return torch.matmul(a.double(), b.double()).to(torch.int32)
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {a.device}")
-    return torch._int_mm(a, b)
+    return int_mm_padded(a, b)
+
+
+def int_mm_padded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch._int_mm` at any M: at most 16 rows are padded with zero rows
+    to _INT_MM_MIN_ROWS, and the result sliced back."""
+    m = a.shape[0]
+    if m > 16:
+        return torch._int_mm(a, b)
+    return torch._int_mm(F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - m)), b)[:m]
 
 
 def int8_conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

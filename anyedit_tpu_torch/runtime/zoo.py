@@ -4,8 +4,9 @@ condition and scorer slots (counterpart of the `grounder()`, `ip2p()`,
 `p2p_pair()`, `flux_pair_fn()`, `text2img_fn()`, `img2img_fn()`,
 `sdxl_inpaint_fn()`, `canny_consistency_fn()`, `sdxl_material_fn()`,
 `canny_fn()`, `depth_fn()`, `hed_fn()`, `seg_fn()`, `composition_fn()`,
-`anydoor()`, `dino_embed()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()`
-and `toolbox()` of `anyedit_tpu/runtime/zoo.py`).
+`anydoor()`, `dino_embed()`, `clip_towers()`, `aesthetic_fn()`, `vqa_fn()`,
+`vila_fn()`, `ocr_fn()`, `select_tokenizers` and `toolbox()` of
+`anyedit_tpu/runtime/zoo.py`).
 
 `ModelZoo(cfg, device).grounder()` returns `ground(image_u8, phrase, mode,
 count_k)`: bilinear resize to the 800 px detector bucket, ImageNet
@@ -96,18 +97,22 @@ clip_text(text) -> (1, P))`, both L2-normed (bilinear antialiased resize
 to the tower's size, ImageNet mean and std, as the JAX zoo), and
 `clip_image.batch(images)` one tower forward for a list; `aesthetic_fn()`
 the LAION MLP over `clip_image`; `vqa_fn()` BLIP-2's yes/no answer on the
-EVA tower's tokens. `install(tb, slot)` attaches one of them ("clip",
-"aesthetic", "vqa"), the SD inpainter ("sd_inpaint"), UltraEdit
+EVA tower's tokens; `vila_fn()` VILA-1.5's (vicuna-7B over CLIP ViT-L/336
+tokens), the same contract; `ocr_fn()` GOT-OCR2's text (SAM ViT-B + Qwen2).
+`install(tb, slot)` attaches one of them ("clip", "aesthetic", "vqa",
+"vila" as `tb.vqa_yes_no`, "ocr" as `tb.ocr`), the SD inpainter ("sd_inpaint"), UltraEdit
 ("ultraedit", as `tb.extra["ultraedit"]`), the pair synthesizers, the
 refine slots, "composition", "anydoor" and "dino" (as `tb.extra[...]`), or
 "canny", "depth", "hed" or "seg" to a Toolbox, and `toolbox(slots=...)`
-installs them beside `ground`, `inpaint` and `ip2p`.
+installs them beside `ground`, `inpaint` and `ip2p`. `install` takes
+exactly the JAX zoo's slot names.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from pathlib import Path
 from typing import Any, Callable, Mapping, Optional, Sequence
 
 import numpy as np
@@ -122,7 +127,9 @@ from anyedit_tpu_torch.diffusion.sampling import p2p_sample, sample_cfg, sample_
 from anyedit_tpu_torch.edits.types import Toolbox
 from anyedit_tpu_torch.filters.scorers import AestheticMLP
 from anyedit_tpu_torch.grounding.maskgen import grounding_result, select_boxes
-from anyedit_tpu_torch.grounding.text import SimpleVocabTokenizer, phrase_token_spans
+from anyedit_tpu_torch.grounding.text import (
+    SimpleVocabTokenizer, WordPieceTokenizer, phrase_token_spans,
+)
 from anyedit_tpu_torch.models.bert import TINY_BERT
 from anyedit_tpu_torch.models.blip2 import BLIP2_QFORMER, TINY_QFORMER, Blip2VQA, QFormerConfig, yes_no
 from anyedit_tpu_torch.models.clip import (
@@ -130,7 +137,10 @@ from anyedit_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPTextEncoder, CLIPTextModel, CLIPVisionConfig, CLIPVisionEncoder,
 )
-from anyedit_tpu_torch.models.clip_tokenizer import SimpleClipTokenizer
+from anyedit_tpu_torch.models.bpe import ENDOFTEXT, IM_END, Qwen2Tokenizer, got_prompt_ids
+from anyedit_tpu_torch.models.clip_tokenizer import (
+    ClipBPETokenizer, SimpleClipTokenizer, find_clip_merges,
+)
 from anyedit_tpu_torch.models.controlnet import ControlNet
 from anyedit_tpu_torch.models.depth import (
     DEPTH_ANYTHING_L, TINY_DEPTH, DepthAnythingV2, DPTConfig, depth_to_u8,
@@ -143,7 +153,11 @@ from anyedit_tpu_torch.models.ip_adapter import (
     ImageProjection, IPAdapterWeights, cross_attn_sites, ip_adapter_processor,
 )
 from anyedit_tpu_torch.models.lama import LAMA, TINY_LAMA, LamaConfig, LamaGenerator, pad_to_modulo
+from anyedit_tpu_torch.models.llama import TINY_LLAMA
 from anyedit_tpu_torch.models.mmdit import SD3_ULTRAEDIT, TINY_MMDIT, MMDiT, MMDiTConfig
+from anyedit_tpu_torch.models.ocr import (
+    GOT_OCR, TINY_QWEN, GotOCR, OCRConfig, detokenize_ids, greedy_decode,
+)
 from anyedit_tpu_torch.models.sam import (
     SAM, SAM_PIXEL_MEAN, SAM_PIXEL_STD, SAM_VIT_H, TINY_SAM, SAMConfig,
 )
@@ -151,6 +165,7 @@ from anyedit_tpu_torch.models.segmentation import (
     TINY_SEG, UPERNET_SWIN_T, SegConfig, UperNetSegmenter, render_segmentation,
 )
 from anyedit_tpu_torch.models.swin import TINY_SWIN
+from anyedit_tpu_torch.models.sentencepiece import SentencePieceModel
 from anyedit_tpu_torch.models.t5 import T5_XXL, TINY_T5, T5Config, T5Encoder
 from anyedit_tpu_torch.models.unet_sd import (
     SD15_INPAINT_UNET, SD15_IP2P_UNET, SD15_UNET, SD21_ANYDOOR_UNET, SDXL_UNET, TINY_UNET,
@@ -159,6 +174,7 @@ from anyedit_tpu_torch.models.unet_sd import (
 from anyedit_tpu_torch.models.vae import (
     FLUX_VAE, SD3_VAE, SD_VAE, SDXL_VAE, TINY_VAE, AutoencoderKL, VAEConfig,
 )
+from anyedit_tpu_torch.models.vila import VILA_1_5, VilaConfig, VilaVQA
 from anyedit_tpu_torch.ops.canny import canny, rgb_to_gray
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
@@ -204,6 +220,8 @@ class ZooConfig:
     seg_cfg: SegConfig = UPERNET_SWIN_T         # visual_segment's segmenter
     eva: CLIPVisionConfig = EVA_VIT_G          # BLIP-2 vision tower
     qformer: QFormerConfig = BLIP2_QFORMER     # BLIP-2 Q-Former + LM
+    ocr: OCRConfig = GOT_OCR                   # GOT-OCR2 (textual_change's gate)
+    vila: VilaConfig = VILA_1_5                # VILA-1.5 (the alternative VQA judge)
     # W8A8 int8 fast mode for the IP2P UNet (ops/quant.py): the float
     # parameters are quantized per output channel at slot build. Opt-in;
     # bf16 is the parity default. `quant_diffusion` also covers the other
@@ -224,7 +242,8 @@ def tiny_zoo_config() -> ZooConfig:
     canvas, every box kept above a score of 0, the JAX zoo's 2-block
     DINOv2-L at 56 px for AnyDoor and the DINO scorer. Two differences:
     every tower is fp32 (the JAX config leaves the tiny Swin, BERT,
-    Q-Former, T5, DINOv2 and the segmenter in bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
+    Q-Former, T5, DINOv2, the segmenter and the VILA and GOT language
+    models in bf16), and BERT's vocabulary is 30522, so that the hash tokenizer's ids
     index the table (at TINY_BERT's 128 they fall outside it, which
     `jnp.take` answers with NaN)."""
     f32 = dict(dtype=torch.float32)
@@ -264,6 +283,10 @@ def tiny_zoo_config() -> ZooConfig:
         eva=dataclasses.replace(TINY_VISION, **f32),
         qformer=dataclasses.replace(TINY_QFORMER, lm=dataclasses.replace(TINY_T5, **f32),
                                     **f32),
+        ocr=OCRConfig(vision=dataclasses.replace(TINY_SAM, **f32),
+                      lm=dataclasses.replace(TINY_QWEN, **f32), max_tokens=8, **f32),
+        vila=VilaConfig(vision=dataclasses.replace(TINY_VISION, use_proj=False, **f32),
+                        lm=dataclasses.replace(TINY_LLAMA, **f32), **f32),
         box_threshold=0.0)
 
 
@@ -272,6 +295,30 @@ def _tiny_clip_layout_eva(vcfg: CLIPVisionConfig) -> bool:
     TINY_VISION, a CLIP-layout tower (pre-LN, projection), whose parameters
     only the CLIP names fit."""
     return vcfg.pre_ln
+
+
+def select_tokenizers(weights_dir: Optional[Path], clip_vocab_size: int,
+                      allow_fallback: bool = False):
+    """(WordPiece-or-hash, CLIP-BPE-or-hash) tokenizer pair for a weights
+    dir, as the JAX zoo selects them: the hash tokenizers without a dir;
+    with one, `vocab.txt` and the CLIP merges are required unless
+    `allow_fallback`."""
+    if weights_dir is None:
+        return SimpleVocabTokenizer(), SimpleClipTokenizer(clip_vocab_size)
+    weights_dir = Path(weights_dir)
+    vocab = weights_dir / "vocab.txt"
+    merges = find_clip_merges(weights_dir)
+    if (not vocab.exists() or merges is None) and not allow_fallback:
+        raise FileNotFoundError(
+            f"weights_dir={weights_dir} is set but tokenizer assets "
+            "are missing (need vocab.txt for grounding WordPiece and "
+            "bpe_simple_vocab_16e6.txt.gz for CLIP BPE); converted "
+            "checkpoints would silently receive hash-bucket token "
+            "ids. Pass allow_fallback_tokenizers=True to override.")
+    word = WordPieceTokenizer(vocab) if vocab.exists() else SimpleVocabTokenizer()
+    clip = (ClipBPETokenizer(merges) if merges
+            else SimpleClipTokenizer(clip_vocab_size))
+    return word, clip
 
 
 class ModelZoo:
@@ -285,20 +332,37 @@ class ModelZoo:
     "clip_vision", "clip_text_proj", "aesthetic", "eva_vit", "blip2", "mmdit_ultraedit",
     "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux", "flux_vae", "unet_refine",
     "sdxl_vae", "controlnet_canny", "controlnet_depth", "ip_proj", "ip_adapter",
-    "depth", "hed", "seg", "unet_anydoor", "controlnet_anydoor", "dinov2_g" and
-    "anydoor_proj"; a missing slot gets a seeded init (a ControlNet's zero convs and
-    hint projection at zero, as in the JAX zoo). Tokens come from the hash tokenizers the JAX zoo uses
-    with no weights dir."""
+    "depth", "hed", "seg", "unet_anydoor", "controlnet_anydoor", "dinov2_g",
+    "anydoor_proj", "vila" and "ocr"; a missing slot gets a seeded init (a
+    ControlNet's zero convs and hint projection at zero, as in the JAX zoo).
+    weights_dir: optional; the port reads only tokenizer assets from it
+    (`vocab.txt`, the CLIP merges, `spiece.model`, and `got_tokenizer.json`
+    or `qwen_vocab.json` + `qwen_merges.txt`), selected as the JAX zoo
+    selects them (`select_tokenizers`; without it, the hash tokenizers).
+    A dir holding a `*.msgpack` is refused: weights come through `params`,
+    so that no slot the JAX zoo would load is seeded here."""
 
     def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
-                 seed: int = 0, params: Optional[Mapping[str, Any]] = None):
+                 seed: int = 0, params: Optional[Mapping[str, Any]] = None,
+                 weights_dir: str | Path | None = None,
+                 allow_fallback_tokenizers: bool = False):
         self.cfg = cfg or ZooConfig()
         self.device = torch.device(device)
         self.seed = seed
         self.params = dict(params or {})
+        self.weights = Path(weights_dir) if weights_dir else None
+        if self.weights is not None:
+            packed = sorted(p.name for p in self.weights.glob("*.msgpack"))
+            if packed:
+                raise ValueError(
+                    f"weights_dir={self.weights} holds {packed}: the port reads only "
+                    "tokenizer assets from weights_dir; pass the parameter trees "
+                    "as params= (ModelZoo would otherwise seed those slots)")
         self._cache: dict[str, Any] = {}
-        self.tokenizer = SimpleVocabTokenizer()
-        self.clip_tokenizer = SimpleClipTokenizer(self.cfg.text.vocab_size)
+        self._spiece: Any = False                 # not looked for yet
+        self.tokenizer, self.clip_tokenizer = select_tokenizers(
+            self.weights, self.cfg.text.vocab_size,
+            allow_fallback=allow_fallback_tokenizers)
 
     def _get(self, name: str, build: Callable[[], Any]):
         if name not in self._cache:
@@ -327,10 +391,21 @@ class ModelZoo:
             ids_a %= vocab_size
         return ids_a
 
+    def _sentencepiece(self) -> Optional[SentencePieceModel]:
+        """`spiece.model` of the weights dir, read once, or None."""
+        if self._spiece is False:
+            f = self.weights / "spiece.model" if self.weights else None
+            self._spiece = SentencePieceModel.from_file(f) if f and f.exists() else None
+        return self._spiece
+
     def _t5_ids(self, text: str, max_len: int) -> np.ndarray:
-        """T5 ids: the JAX zoo's fallback with no SentencePiece model, the
-        hash ids modulo `flux_text.vocab_size`."""
-        return self._ids(text, max_len, self.cfg.flux_text.vocab_size)
+        """T5 ids: SentencePiece's, eos-terminated and zero-padded, when
+        `spiece.model` is in the weights dir; else the hash ids modulo
+        `flux_text.vocab_size`, as in the JAX zoo."""
+        sp = self._sentencepiece()
+        if sp is None:
+            return self._ids(text, max_len, self.cfg.flux_text.vocab_size)
+        return np.asarray([sp.encode_padded(text, max_len)], np.int64)
 
     def _clip_ids(self, text: str, max_len: int) -> np.ndarray:
         """CLIP ids, EOT-padded (HF CLIPTokenizer convention: pooled =
@@ -654,15 +729,18 @@ class ModelZoo:
         """(image_u8, question) -> bool: BLIP-2's yes/no answer
         (filter_tool/utils.py:55-94). `ask.logits(image_u8, question)` gives
         the decoder's first-step logits (1, vocab) it compares. The question
-        is 32 hash ids, modulo `flux_text.vocab_size` then the LM's vocabulary,
-        masked where 0; 'yes' and 'no' are the first id after CLS of the
-        words' own ids, as in the JAX zoo with no SentencePiece model."""
+        is 32 `_t5_ids` modulo the LM's vocabulary, masked where 0; 'yes' and
+        'no' are the words' first SentencePiece ids with `spiece.model`, else
+        the first id after CLS of their hash ids, as in the JAX zoo."""
         def build():
             c = self.cfg
             vis, vqa = self._vision("eva_vit", c.eva), self._blip2()
             vocab = c.qformer.lm.vocab_size
-            yes_id = int(self._ids("yes", 3, vocab)[0, 1])   # [0, 0] is CLS
-            no_id = int(self._ids("no", 3, vocab)[0, 1])
+            if self._sentencepiece() is not None:
+                yes_id, no_id = (int(self._t5_ids(w, 3)[0, 0]) for w in ("yes", "no"))
+            else:
+                yes_id = int(self._ids("yes", 3, vocab)[0, 1])   # [0, 0] is CLS
+                no_id = int(self._ids("no", 3, vocab)[0, 1])
 
             @torch.inference_mode()
             def logits(image_u8, question: str) -> torch.Tensor:
@@ -677,6 +755,79 @@ class ModelZoo:
             return ask
         return self._get("vqa", build)
 
+    def _vila(self) -> VilaVQA:
+        return self._get("vila_model", lambda: self._load(
+            VilaVQA(self.cfg.vila, device=self.device), "vila", bridge.vila_state_dict))
+
+    def vila_fn(self):
+        """(image_u8, question) -> bool: VILA's yes/no answer
+        (pre_filter.py:98-106,308-345), the `vqa_fn` contract; installed by
+        the "vila" slot as `tb.vqa_yes_no`. The image resized bilinear to
+        the tower's size and ImageNet-normalized, the question as 32 hash
+        ids modulo the LM's vocabulary, one prefill over [576 image tokens,
+        32 ids]; 'yes' and 'no' are the first id after CLS of the words'
+        hash ids. `ask.logits(image_u8, question)` gives the (1, vocab)
+        logits it compares."""
+        def build():
+            vcfg = self.cfg.vila
+            model = self._vila()
+            size, vocab = vcfg.vision.image_size, vcfg.lm.vocab_size
+            yes_id = int(self._ids("yes", 3, vocab)[0, 1])
+            no_id = int(self._ids("no", 3, vocab)[0, 1])
+
+            @torch.inference_mode()
+            def logits(image_u8, question: str) -> torch.Tensor:
+                ids = torch.from_numpy(self._ids(question, 32, vocab)).to(self.device)
+                return model(self._pixels(image_u8, size), ids)
+
+            def ask(image_u8, question: str) -> bool:
+                return bool(yes_no(logits(image_u8, question), yes_id, no_id)[0])
+            ask.logits = logits
+            ask.yes_no_ids = (yes_id, no_id)
+            return ask
+        return self._get("vila", build)
+
+    def _got(self) -> GotOCR:
+        return self._get("ocr_model", lambda: self._load(
+            GotOCR(self.cfg.ocr, device=self.device), "ocr", bridge.ocr_state_dict))
+
+    def ocr_fn(self):
+        """image_u8 -> recognized text (GOT-OCR2, filter_tool/utils.py:43-49):
+        the image resized bilinear to the SAM tower's size, ImageNet-
+        normalized, encoded once, then `greedy_decode` of at most
+        `ocr.max_tokens` ids. With Qwen2 tokenizer assets in the weights dir
+        (`models/bpe.py`), the GOT chat prompt around the image tokens and
+        the real vocabulary, stopping at <|im_end|> / <|endoftext|>;
+        without them, the JAX zoo's placeholder pieces "▁t<id>", which no
+        quoted caption text matches, so the textual gate fails closed."""
+        def build():
+            c = self.cfg.ocr
+            model = self._got()
+            size = c.vision.img_size
+            qtok = Qwen2Tokenizer.from_dir(self.weights) if self.weights else None
+            if qtok is not None:
+                prefix, suffix = got_prompt_ids(qtok)
+                pre = torch.tensor([prefix], device=self.device)
+                apply = lambda toks, ids: model.lm_logits_chat(toks, pre, ids)
+            else:
+                suffix, apply = None, model.lm_logits
+
+            @torch.inference_mode()
+            def read(image_u8) -> str:
+                toks = model.encode_image(self._pixels(image_u8, size))
+                if qtok is None:
+                    out = greedy_decode(apply, toks, c.max_tokens)
+                    return detokenize_ids(out[0], lambda i: f"▁t{i}")
+                out = greedy_decode(apply, toks, c.max_tokens, prompt_ids=suffix,
+                                    stop_ids=frozenset({IM_END, ENDOFTEXT}))
+                cut = [int(t) for t in out[0][len(suffix):]]
+                for stop in (IM_END, ENDOFTEXT):
+                    if stop in cut:
+                        cut = cut[:cut.index(stop)]
+                return qtok.decode(cut).strip()
+            return read
+        return self._get("ocr", build)
+
     def install(self, tb: Toolbox, slot: str) -> None:
         """Build one named slot and attach it to the toolbox."""
         if slot == "sd_inpaint":
@@ -687,6 +838,10 @@ class ModelZoo:
             tb.extra["aesthetic"] = self.aesthetic_fn()
         elif slot == "vqa":
             tb.vqa_yes_no = self.vqa_fn()
+        elif slot == "vila":
+            tb.vqa_yes_no = self.vila_fn()
+        elif slot == "ocr":
+            tb.ocr = self.ocr_fn()
         elif slot == "ultraedit":
             tb.extra["ultraedit"] = self.ultraedit_fn()
         elif slot == "masactrl":
@@ -717,11 +872,11 @@ class ModelZoo:
         elif slot == "dino":
             tb.extra["dino_embed"] = self.dino_embed()
         else:
-            raise KeyError(f"unknown toolbox slot {slot!r} (ported: 'sd_inpaint', 'clip', "
-                           "'aesthetic', 'vqa', 'ultraedit', 'masactrl', 'p2p_pair', "
-                           "'flux_pair', 'text2img', 'sdxl_img2img', 'sdxl_inpaint', "
-                           "'canny_consistency', 'sdxl_material', 'canny', 'depth', 'hed', "
-                           "'seg', 'composition', 'anydoor', 'dino')")
+            raise KeyError(f"unknown toolbox slot {slot!r} (the slots: 'sd_inpaint', "
+                           "'clip', 'aesthetic', 'vqa', 'vila', 'ocr', 'ultraedit', "
+                           "'masactrl', 'p2p_pair', 'flux_pair', 'text2img', 'sdxl_img2img', "
+                           "'sdxl_inpaint', 'canny_consistency', 'sdxl_material', 'canny', "
+                           "'depth', 'hed', 'seg', 'composition', 'anydoor', 'dino')")
 
     def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
         """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its

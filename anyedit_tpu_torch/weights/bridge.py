@@ -1211,3 +1211,96 @@ def flux_state_dict(tree: Mapping[str, Any]):
 def flux_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
     """The port's Flux state dict -> a Flax tree of `like`'s structure."""
     return _to_tree(like, sd, _flux_fn(like))
+
+
+# ---- Llama, VILA, GOT-OCR2 (convert.py `_llama_key`, `convert_vila`,
+# `convert_got_ocr`) -------------------------------------------------------------
+
+_LLAMA_LAYER = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+                "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                "w_down": "mlp.down_proj", "attn_norm": "input_layernorm",
+                "mlp_norm": "post_attention_layernorm"}
+
+
+def _llama_key(p: list[str], body: str):
+    """A `Llama` leaf (float or W8A8) -> the HF key, the decoder body under
+    `body` ("model." for LlamaForCausalLM, "model.language_model." inside
+    VILA and GOT); the lm head is top-level `lm_head` in all three."""
+    name = p[0]
+    _, lin, norm = _kinds(p[-1])
+    if name == "tok":
+        return f"{body}embed_tokens.weight", _ID
+    if name == "norm_f":
+        return norm(f"{body}norm")
+    if name == "lm_head":
+        return lin("lm_head")
+    if m := re.match(r"layer_(\d+)$", name):
+        return lin(f"{body}layers.{m[1]}.{_LLAMA_LAYER[p[1]]}")
+    raise KeyError(f"unmapped Llama param {'/'.join(p)}")
+
+
+def _llama_fn(path: tuple[str, ...]):
+    return _llama_key(_strip(path), "model.")
+
+
+def llama_state_dict(tree: Mapping[str, Any]):
+    """Flax `Llama` params (float or W8A8) -> the port's `Llama` state dict
+    (HF LlamaForCausalLM keys)."""
+    return _bridge(tree, _llama_fn)
+
+
+def llama_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _llama_fn)
+
+
+def _vila_key(path: tuple[str, ...]):
+    p = _strip(path)
+    if p[0] == "vision":
+        key, tf = _clip_vision_key(tuple(p[1:]))
+        return f"model.vision_tower.{key}", tf
+    if p[0] == "projector":
+        _, lin, _ = _kinds(p[-1])
+        return lin(f"model.multi_modal_projector.linear_{p[1][-1]}")    # fc1, fc2
+    if p[0] == "lm":
+        return _llama_key(p[1:], "model.language_model.")
+    raise KeyError(f"unmapped VILA param {'/'.join(path)}")
+
+
+def vila_state_dict(tree: Mapping[str, Any]):
+    """Flax `VilaVQA` params -> the port's `VilaVQA` state dict (HF
+    LlavaForConditionalGeneration keys)."""
+    return _bridge(tree, _vila_key)
+
+
+def vila_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _vila_key)
+
+
+def _ocr_key(path: tuple[str, ...]):
+    p = _strip(path)
+    proj = "model.multi_modal_projector"
+    if p[0] == "vision":
+        key, *rest = _sam_key(("encoder",) + tuple(p[1:]))
+        return (f"model.vision_tower.{key[len('image_encoder.'):]}", *rest)
+    if p[0] in ("up1", "up2"):
+        conv, _, _ = _kinds(p[-1])
+        return conv(f"{proj}.conv_upsampler{p[0][-1]}")
+    if p[0] == "mm_proj":
+        _, lin, _ = _kinds(p[-1])
+        return lin(f"{proj}.multimodal_projector")
+    if p[0] == "lm":
+        return _llama_key(p[1:], "model.language_model.")
+    raise KeyError(f"unmapped GOT-OCR2 param {'/'.join(path)}")
+
+
+def ocr_state_dict(tree: Mapping[str, Any]):
+    """Flax `GotOCR` params -> the port's `GotOCR` state dict: the SAM
+    encoder under `model.vision_tower` with its own names, the projector
+    and the Qwen2 LM under HF GotOcr2 names. The tree's lm head holds the
+    checkpoint's tied embedding (convert.py copies it), so `lm_head.weight`
+    and the embedding both come from the tree."""
+    return _bridge(tree, _ocr_key)
+
+
+def ocr_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    return _to_tree(like, sd, _ocr_key)

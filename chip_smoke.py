@@ -4,8 +4,10 @@ inpainting, geometry and outpainting edits, one chunk through the
 executor's chunk mode, one SD3-UltraEdit record, one record of each
 caption-pair editor (MasaCtrl, Prompt-to-Prompt, Flux), the SDXL
 refine stack (implicit_change with all four stages, material_transfer),
-and one record of each of the last eight edit types (the five visual
-conditions, rotation_change, composition, visual_reference through AnyDoor).
+one record of each of the last eight edit types (the five visual
+conditions, rotation_change, composition, visual_reference through AnyDoor),
+the factory's two LM gates (VILA-1.5 as the VQA judge, GOT-OCR2 on
+textual_change) and instruction generation on Llama-3-8B in bf16 and W8A8.
 
     python3 chip_smoke.py
 
@@ -222,6 +224,32 @@ bf16 distance. After phase 20, on a zoo of its own (the production
      phase holds K1 at (10, 4096, 64) (its row carries the record's launches
      at that shape; the (20, 1024, 64) row gains `launches_anydoor`), and K2
      gets a row at each new shape these paths launched it (`new_k2_rows`).
+After `visual reference`, `llm reference` holds the tiny Llama in bf16 and
+in W8A8 (the same int8 codes; the W8A8 decode's 2-row GEMMs through the
+padded `torch._int_mm`), the tiny VILA (`vila_fn()`) and the tiny GOT-OCR2
+(image tokens, text logits) on the card against fp32 on the CPU, within
+twice the CPU's own bf16 distance, and the int8 contraction at M = 1, 8 and
+16 rows against float64. After `executor record`, `vila` runs RECORD once
+more through `FactoryExecutor` with "vila" installed in place of "vqa"
+(VILA-1.5: vicuna-7B + CLIP ViT-L/336 with its last block dropped) and the
+pre-gate on the image size: K1 1,000, K2 one request's plus 4, the
+post-filter's vqa_yes VILA's answer; one VILA call in ms beside
+`vila_bound_ms`. In the flux phase, one more textual_change record with
+"ocr" installed (GOT-OCR2: SAM ViT-B at 1,024 px + Qwen2-0.5B): at random
+weights the reader matches no quoted text, so the gate fails closed after
+its first read (status `failure`, "OCR text mismatch", K1 0); ms a read.
+After phase 21, on models of its own (freed after):
+ 22. llm: Llama-3-8B seeded at published widths in bf16: prefill + one
+     decode step against the full causal forward (LLAMA_KV_REL_L2), the
+     fp32 8B from the same seed against it (LLAMA_FP32_REL_L2); prefill at
+     (8, 1,024) and a decode step at batch 8 over 1,120 cache slots in ms
+     beside `llama_bound_ms`; one `InstructionGenerator` batch of 8 captions
+     on the instruction bench's workload (5 shots, byte tokens in a
+     1,024-token bucket, 96 new tokens, the self-check priced): seconds,
+     records/hour, device-busy share, peak GiB, K1 = K2 = 0; then the W8A8
+     8B (`quantize_llama`) against bf16 (cosine > 0.95) and its prefill and
+     decode ms. The K1 and K2 rows carry `launches_vila` and `launches_llm`;
+     K1's carries `launches_ocr`.
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -1842,7 +1870,10 @@ SYNTH_PATHS = {"masactrl": ("action_change", "action_change record (MasaCtrl, 50
                             "steps under the AttentionStore: the SD1.5 UNet at batch 4; the "
                             "SD VAE decode at batch 2)"),
                "flux": ("textual_change", "textual_change record (Flux-schnell, 2 x 4 "
-                        "steps at batch 1; the Flux VAE decode at batch 1)")}
+                        "steps at batch 1; the Flux VAE decode at batch 1)"),
+               "ocr": ("textual_change", "textual_change record with the GOT-OCR2 gate "
+                       "(Flux-schnell, 2 x 4 steps at batch 1; the Flux VAE decode at "
+                       "batch 1)")}
 
 
 def check_synth_reference(dev):
@@ -2809,6 +2840,431 @@ def visual_phase(dev):
 
 
 
+# ---- slice 5: instruction generation on Llama-3-8B, the VILA and GOT-OCR2 gates
+
+# the instruction bench's workload (`tools/bench_torch_instructions.py`, the
+# twin of `tools/bench_instructions.py`): captions from a subject x scene
+# grid, byte-fallback tokens capped at a 1,024-token prompt bucket, 96 new
+# tokens, batch 8
+INSTR_SUBJECTS = ["a dog", "two children", "a red bus", "an old clock", "a bowl of fruit",
+                  "a cyclist", "a wooden bench", "a tall giraffe"]
+INSTR_SCENES = ["on a beach", "in a busy street", "near a lake", "inside a kitchen",
+                "at a train station", "under a tree", "on a snowy hill", "beside a brick wall"]
+INSTR_PROMPT, INSTR_NEW, INSTR_BATCH = 1024, 96, 8
+# Llama-3-8B's last logits after prefill(32 tokens) + one decode step
+# against the full causal forward over the 33 tokens, both bf16 on the card
+# (relative L2): the two run the block GEMMs at other row counts, so their
+# bf16 roundings differ, grown through 32 blocks; an H100 measured 1.63e-2.
+# The fp32 8B from the same seed against the bf16 one on prefill's last
+# logits: bf16 rounding of the weights and activations through 32 blocks;
+# an H100 measured 1.98e-2. The limits leave room for other GEMM tilings,
+# not for a wrong cache slot or mask (a lost position moves the logits by
+# their own scale).
+LLAMA_KV_REL_L2 = 0.05
+LLAMA_FP32_REL_L2 = 0.05
+
+
+def instruction_captions(n: int) -> list[str]:
+    return [f"{INSTR_SUBJECTS[i % 8]} {INSTR_SCENES[(i // 8) % 8]}" for i in range(n)]
+
+
+def byte_tokenizer(vocab: int):
+    """(tokenize, detokenize): UTF-8 bytes mapped into [1, vocab - 2], the
+    prompt left-cut to INSTR_PROMPT tokens (no tokenizer assets ship)."""
+    tokenize = lambda s: [1 + (b % (vocab - 2)) for b in s.encode()][-INSTR_PROMPT:]
+    detok = lambda ids: bytes((max(0, i - 1) % 256) for i in ids).decode("utf-8", "replace")
+    return tokenize, detok
+
+
+def self_check_prompts(captions) -> list[str]:
+    """The explicit self-check pass: at random weights no generation parses,
+    so `InstructionGenerator` skips its own; these price it (one eval prompt
+    per caption, instruction_gen.py:98-174)."""
+    from anyedit_tpu_torch.instructions.prompts import eval_prompt
+    return [eval_prompt("replace", c, f"replace the x in {c}", c) for c in captions]
+
+
+def llama_bound_ms(m, batch: int, tokens: int, context: int) -> tuple[float, str, float, float]:
+    """(bound ms, "operations" or "bytes", TFLOP, GB) of one call of the
+    Llama `m` (a `CausalLM`) running `tokens` new positions per row against
+    `context` key slots (prefill: tokens = context = L, the full L x L grid
+    the JAX module computes; a decode step: 1 token against every cache
+    slot), the head at the last position. Operations: the block
+    projections, 2 x their parameters x rows (int8 at 1,979 TOP/s when
+    W8A8, else bf16 at 989 TFLOP/s); QK^T and PV, 4 x layers x heads x
+    tokens x context x hd a row, at 989; the fp32 head, 2 x dim x vocab a
+    row, at 67 TFLOP/s. Bytes: every block and head parameter read once,
+    the embedding rows gathered, the bf16 KV cache's earlier slots read and
+    the new ones written, the logits written; at 3.35 TB/s."""
+    from anyedit_tpu_torch.ops.kernel_check import (
+        HBM_BYTES_PER_S, PEAK_BF16, PEAK_FP32, PEAK_INT8,
+    )
+    c = m.lm_cfg
+    hd = c.dim // c.heads
+    blocks = m.lm_body.layers
+    proj = sum(p.numel() for n, p in blocks.named_buffers() if n.endswith(".weight")) + \
+        sum(p.numel() for n, p in blocks.named_parameters() if n.endswith("proj.weight"))
+    rows = batch * tokens
+    ops = {"proj": 2.0 * proj * rows,
+           "attn": 4.0 * c.layers * batch * c.heads * tokens * context * hd,
+           "head": 2.0 * batch * c.dim * c.vocab_size}
+    ops_ms = (ops["proj"] / (PEAK_INT8 if c.quant else PEAK_BF16)
+              + ops["attn"] / PEAK_BF16 + ops["head"] / PEAK_FP32) * 1e3
+    weights = sum(t.numel() * t.element_size()
+                  for t in list(blocks.parameters()) + list(blocks.buffers()))
+    weights += m.lm_head.weight.numel() * 4 + c.dim * 4 + rows * c.dim * 4
+    kv = 2 * c.layers * batch * c.kv_heads * context * hd * 2
+    moved = weights + kv + batch * c.vocab_size * 4
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            sum(ops.values()) / 1e12, moved / 1e9)
+
+
+def check_llm_reference(dev):
+    """The tiny Llama in bf16 and in W8A8 (the same int8 codes and scales),
+    the tiny VILA and the tiny GOT-OCR2 on the card against the same models
+    in fp32 on the CPU, same weights: the Llama's causal-forward logits and
+    the logits of prefill + two decode steps (the W8A8 decode's 2-row GEMMs
+    pass through the padded `torch._int_mm`), VILA's yes/no logits through
+    `vila_fn()`, GOT's image tokens and text logits; each within twice the
+    CPU's own bf16 distance, at least one bf16 rounding (2^-8). Then the
+    int8 contraction at M = 1, 8 and 16 rows on the card equals float64."""
+    import torch
+    from anyedit_tpu_torch.models.llama import TINY_LLAMA, Llama, quantize_llama
+    from anyedit_tpu_torch.ops.quant import int8_matmul
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, tiny_zoo_config
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    places = {"ref": (f32, "cpu"), "cpu16": (bf16, "cpu"), "card16": (bf16, dev)}
+
+    def llama(dtype, device, quant=False):
+        cfg = dataclasses.replace(TINY_LLAMA, dtype=dtype, quant=quant)
+        return Llama(cfg, device=device).eval().requires_grad_(False)
+    ref = seeded_init_(llama(f32, "cpu"), 0)
+    qref = quantize_llama(ref)
+    rng = np.random.default_rng(11)
+    ids = rng.integers(1, TINY_LLAMA.vocab_size, (2, 12))
+    img = rng.integers(0, 256, (48, 40, 3), np.uint8)
+    tiny = tiny_zoo_config()
+
+    def zoo_cfg(dtype):
+        v, o = tiny.vila, tiny.ocr
+        return dataclasses.replace(
+            tiny, vila=dataclasses.replace(v, vision=dataclasses.replace(v.vision, dtype=dtype),
+                                           lm=dataclasses.replace(v.lm, dtype=dtype)),
+            ocr=dataclasses.replace(o, vision=dataclasses.replace(o.vision, dtype=dtype),
+                                    lm=dataclasses.replace(o.lm, dtype=dtype), dtype=dtype))
+    zref = ModelZoo(zoo_cfg(f32), "cpu", seed=0)
+
+    def outputs(name):
+        dtype, device = places[name]
+        out = {}
+        for label, src, quant in (("llama", ref, False), ("llama_w8a8", qref, True)):
+            m = llama(dtype, device, quant)
+            m.load_state_dict(src.state_dict())
+            t = torch.from_numpy(ids).to(device)
+            with torch.inference_mode():
+                out[f"{label} forward"] = m(t)
+                logits, caches = m.prefill(m.embed(t[:, :10]), 12)
+                steps = [logits]
+                for pos in (10, 11):
+                    logits, caches = m.decode_step(m.embed(t[:, pos:pos + 1]), caches, pos)
+                    steps.append(logits)
+                out[f"{label} prefill + decode"] = torch.stack(steps, 1)
+        z = ModelZoo(zoo_cfg(dtype), device, seed=0)
+        z._vila().load_state_dict(zref._vila().state_dict())
+        z._got().load_state_dict(zref._got().state_dict())
+        out["vila logits"] = z.vila_fn().logits(img, VQA_QUESTIONS[0])
+        got = z._got()
+        with torch.inference_mode():
+            toks = got.encode_image(z._pixels(img, z.cfg.ocr.vision.img_size))
+            out["got image tokens"] = toks
+            out["got text logits"] = got.lm_logits(toks, torch.from_numpy(ids[:1]).to(device))
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    out = {name: outputs(name) for name in places}
+    for key, r in out["ref"].items():
+        d16 = float((out["cpu16"][key] - r).abs().max())
+        dcard = float((out["card16"][key] - r).abs().max())
+        bound = 2 * max(d16, 2.0 ** -8)
+        print(f"tiny {key}: card bf16 vs CPU fp32 max diff {dcard:.3e}, CPU bf16 {d16:.3e} "
+              f"(bound {bound:.3e})", flush=True)
+        require(bool(torch.isfinite(out["card16"][key]).all()) and dcard <= bound,
+                f"the card's bf16 {key} is within twice the CPU's bf16 distance")
+    for m in (1, 8, 16):
+        a = rng.integers(-127, 128, (m, 4096)).astype(np.int8)
+        b = rng.integers(-127, 128, (4096, 4096)).astype(np.int8)
+        got = int8_matmul(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev).t().contiguous().t())
+        want = torch.from_numpy(a).double() @ torch.from_numpy(b).double()
+        require(got.dtype == torch.int32 and torch.equal(got.cpu().double(), want),
+                f"the int8 contraction at M = {m} (padded rows) equals float64")
+    print("int8 contraction at M = 1, 8, 16 rows x 4096 x 4096 on the card: equal to "
+          "float64", flush=True)
+
+
+def llm_phase(dev):
+    """Llama-3-8B at published widths, seeded on the card (the phase's own
+    models, freed after): the KV-cache check (LLAMA_KV_REL_L2), the fp32 8B
+    from the same seed against the bf16 one (LLAMA_FP32_REL_L2), prefill at
+    (8, 1024) and a decode step at batch 8 against 1,120 slots in ms (CUDA
+    events) beside `llama_bound_ms` (which warms the batch's shapes), one
+    `InstructionGenerator` batch of INSTR_BATCH captions on the bench's
+    workload with the self-check priced (seconds, device-busy share of a
+    second, profiled run, peak GiB, K1 = K2 = 0); then the W8A8 8B
+    (`quantize_llama`) against bf16 (cosine > 0.95) and its prefill and
+    decode times. Returns (launches, numbers)."""
+    import torch
+    from anyedit_tpu_torch.instructions.generator import InstructionGenerator, LlamaBackend
+    from anyedit_tpu_torch.models.llama import LLAMA3_8B, Llama, quantize_llama
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.ops.kernel_check import time_ms
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    def build(cfg):
+        return seeded_init_(Llama(cfg, device=dev), 0).eval().requires_grad_(False)
+
+    def step_times(m, label):
+        cache_len = INSTR_PROMPT + INSTR_NEW
+        with torch.inference_mode():
+            emb = m.embed(torch.ones(INSTR_BATCH, INSTR_PROMPT, dtype=torch.int64, device=dev))
+            tok = m.embed(torch.ones(INSTR_BATCH, 1, dtype=torch.int64, device=dev))
+            _, caches = m.prefill(emb, cache_len)
+            pre_ms = time_ms(lambda: m.prefill(emb, cache_len), iters=3)
+            dec_ms = time_ms(lambda: m.decode_step(tok, caches, INSTR_PROMPT), iters=20)
+        pre_b = llama_bound_ms(m, INSTR_BATCH, INSTR_PROMPT, INSTR_PROMPT)
+        dec_b = llama_bound_ms(m, INSTR_BATCH, 1, cache_len)
+        print(f"Llama-3-8B {label}: prefill at ({INSTR_BATCH}, {INSTR_PROMPT}) {pre_ms:.3f} ms "
+              f"(bound {pre_b[0]:.3f} ms, {pre_b[1]}: {pre_b[2]:.2f} TFLOP, {pre_b[3]:.2f} GB); "
+              f"decode step at batch {INSTR_BATCH} over {cache_len} slots {dec_ms:.3f} ms "
+              f"(bound {dec_b[0]:.3f} ms, {dec_b[1]}: {dec_b[2]:.3f} TFLOP, {dec_b[3]:.2f} GB)",
+              flush=True)
+        return {f"{label}_prefill_ms": pre_ms, f"{label}_prefill_bound_ms": pre_b[0],
+                f"{label}_decode_ms": dec_ms, f"{label}_decode_bound_ms": dec_b[0]}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(LLAMA3_8B)
+    torch.cuda.synchronize()
+    nums = {"build_s": time.perf_counter() - t0}
+    v = LLAMA3_8B.vocab_size
+    ids = torch.from_numpy(np.random.default_rng(12).integers(1, v, (2, 33))).to(dev)
+    with torch.inference_mode():
+        full = model(ids)[:, -1]
+        p16, caches = model.prefill(model.embed(ids[:, :32]), 33)
+        step, _ = model.decode_step(model.embed(ids[:, 32:]), caches, 32)
+        nums["kv_rel_l2"] = rel(step, full)
+    f32 = build(dataclasses.replace(LLAMA3_8B, dtype=torch.float32))
+    with torch.inference_mode():
+        p32, _ = f32.prefill(f32.embed(ids[:, :32]), 32)
+        nums["fp32_rel_l2"] = rel(p16, p32)
+    del f32, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"Llama-3-8B bf16 (built in {nums['build_s']:.2f} s): prefill + decode vs the full "
+          f"forward, relative L2 {nums['kv_rel_l2']:.3e} (bound {LLAMA_KV_REL_L2}); vs the "
+          f"fp32 8B from the same seed {nums['fp32_rel_l2']:.3e} (bound {LLAMA_FP32_REL_L2})",
+          flush=True)
+    require(bool(full.isfinite().all()) and nums["kv_rel_l2"] <= LLAMA_KV_REL_L2,
+            "the KV-cache decode matches the full causal forward")
+    require(nums["fp32_rel_l2"] <= LLAMA_FP32_REL_L2, "the bf16 8B tracks the fp32 8B")
+
+    tokenize, detok = byte_tokenizer(v)
+    backend = LlamaBackend(model, tokenize, detok, max_new=INSTR_NEW, batch_size=INSTR_BATCH)
+    gen = InstructionGenerator(llm=backend, seed=0, n_shots=5)
+    caps = instruction_captions(INSTR_BATCH)
+    evals = self_check_prompts(caps)
+
+    def batch():
+        records = gen.generate("replace", caps, batch_size=INSTR_BATCH)
+        return records, backend(evals)
+    # timing prefill at (8, 1024) and the decode step first warms the batch
+    nums.update(step_times(model, "bf16"))
+    torch.cuda.reset_peak_memory_stats()
+    flash_nomax.launches = 0
+    group_norm.launches = 0
+    t0 = time.perf_counter()
+    records, answers = batch()
+    torch.cuda.synchronize()
+    nums["batch_s"] = time.perf_counter() - t0
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    nums["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(launches == {"flash_nomax": 0, "group_norm": 0},
+            f"the instruction batch launched {launches}, want K1 0 and K2 0")
+    require(len(answers) == INSTR_BATCH and all(isinstance(a, str) for a in answers),
+            "the self-check pass answered every caption")
+    nums["busy_ms"] = device_busy_ms(batch)
+    nums["busy_share"] = nums["busy_ms"] / (nums["batch_s"] * 1e3)
+    nums["records_per_hour"] = INSTR_BATCH / nums["batch_s"] * 3600.0
+    print(f"InstructionGenerator batch of {INSTR_BATCH} captions (5 shots, byte tokens "
+          f"in a {INSTR_PROMPT}-token bucket, {INSTR_NEW} new tokens, then the self-check "
+          f"pass): {nums['batch_s']:.3f} s "
+          f"({nums['records_per_hour']:.1f} records/hour), device busy {nums['busy_ms']:.1f} "
+          f"ms ({nums['busy_share'] * 100:.1f} %), peak {nums['peak_gib']:.2f} GiB; "
+          f"{len(records)} records parsed at random weights; launches {launches}", flush=True)
+
+    t0 = time.perf_counter()
+    q = quantize_llama(model)
+    torch.cuda.synchronize()
+    nums["w8a8_build_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        q16, _ = q.prefill(q.embed(ids[:, :32]), 32)
+    nums["w8a8_cosine"] = cosine(q16, p16)
+    nums.update(step_times(q, "w8a8"))
+    print(f"W8A8 Llama-3-8B (quantized in {nums['w8a8_build_s']:.2f} s): prefill logits vs "
+          f"bf16 cosine {nums['w8a8_cosine']:.5f}", flush=True)
+    require(nums["w8a8_cosine"] > 0.95, "the W8A8 8B tracks the bf16 one (cosine > 0.95)")
+    del q, model, backend, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+def vila_bound_ms(m, n_img: int, n_txt: int) -> tuple[float, str, float]:
+    """(bound ms, "operations" or "bytes", TFLOP) of one VILA call: the CLIP
+    tower (2 x its block parameters a token over n_img + 1 tokens, plus
+    4 x layers x hidden x tokens^2 for attention), the projector, and the
+    LM's prefill over n_img + n_txt tokens (2 x block parameters a token,
+    the L x L attention, the fp32 head at the last token), at 989 TFLOP/s
+    bf16 (67 fp32 for the projector and head); every parameter read once
+    at 3.35 TB/s."""
+    from anyedit_tpu_torch.ops.kernel_check import HBM_BYTES_PER_S, PEAK_BF16, PEAK_FP32
+    vc, lc = m.cfg.vision, m.lm_cfg
+    tower = m.model.vision_tower.vision_model.encoder.layers
+    tv = n_img + 1
+    ops_ms = 2.0 * sum(p.numel() for p in tower.parameters()) * tv / PEAK_BF16
+    ops_ms += 4.0 * vc.layers * vc.hidden * tv * tv / PEAK_BF16
+    ops_ms += 2.0 * sum(p.numel() for p in m.model.multi_modal_projector.parameters()) * \
+        n_img / PEAK_FP32
+    length = n_img + n_txt
+    ops_ms += 2.0 * sum(p.numel() for p in m.lm_body.layers.parameters()) * length / PEAK_BF16
+    ops_ms += 4.0 * lc.layers * lc.dim * length * length / PEAK_BF16
+    ops_ms += 2.0 * lc.dim * lc.vocab_size / PEAK_FP32
+    ops_ms *= 1e3
+    moved = sum(p.numel() * p.element_size() for p in m.parameters()) \
+        - m.lm_body.embed_tokens.weight.numel() * 4 + length * lc.dim * 4
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            ops_ms * 1e-3 * PEAK_BF16 / 1e12)
+
+
+def vila_record(dev, zoo, k2_per_request: int):
+    """RECORD through `FactoryExecutor` with "vila" installed in place of
+    "vqa" (beside "clip" and "aesthetic"), both gates, the pre-gate on the
+    image size only (executor record (b)'s): the line is `success` or
+    `filtered` at post, K1 1,000 and K2 one request's plus 4, the
+    post-filter's vqa_yes is the answer VILA gave on the edited frame
+    (each call to the judge recorded); then one VILA call on a 480x640
+    image in ms (median of 3 after a warm-up) beside `vila_bound_ms`.
+    Returns (launches, numbers)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.filters.pre_filter import PreScores
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+
+    rec = InstructionRecord.from_json(RECORD)
+    img = np.random.default_rng(7).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tb = zoo.toolbox(slots=("clip", "aesthetic", "vila"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ask = tb.vqa_yes_no
+    require(ask is zoo.vila_fn(), "the vila slot is the toolbox's VQA judge")
+    asked = []
+
+    def judge(image, question):
+        asked.append((image, question, ask(image, question)))
+        return asked[-1][2]
+    tb.vqa_yes_no = judge
+    post = {}
+    with tempfile.TemporaryDirectory() as root:
+        ex = FactoryExecutor(tb, ExecutorConfig(output_root=root))
+        scored, default_post = ex.pre_scorer, ex.post_scorer
+
+        def size_only(r, i):
+            s = scored(r, i)
+            return PreScores(width=s.width, height=s.height)
+        ex.pre_scorer = size_only
+        ex.post_scorer = lambda r, i, o: post.setdefault("scores", default_post(r, i, o))
+        torch.cuda.synchronize()
+        flash_nomax.launches = 0
+        group_norm.launches = 0
+        t0 = time.perf_counter()
+        ex.run([rec], lambda r: img)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+        line = json.loads((Path(root) / "ledger.jsonl").read_text().splitlines()[-1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"flash_nomax": STEPS * K1_PER_UNET_CALL,
+            "group_norm": k2_per_request + K2_PER_GROUND}
+    require(line["status"] in ("success", "filtered") and line["payload"].get("stage") != "pre",
+            f"the VILA-gated record ended {line}")
+    require(launches == want, f"the VILA-gated record launched {launches}, want {want}")
+    sc = post["scores"]
+    require(len(asked) == 1 and asked[0][1] == "Is the color of car close to red?"
+            and sc.vqa_yes is asked[0][2],
+            "the post-filter's vqa_yes is VILA's answer on the edited frame")
+    m = zoo._vila()
+    c = zoo.cfg.vila
+    n_img = (c.vision.image_size // c.vision.patch) ** 2
+    ask.logits(img, VQA_QUESTIONS[0])
+    call_ms, runs = median_ms(lambda: ask.logits(img, VQA_QUESTIONS[0]))
+    bound_ms, bound_by, tflop = vila_bound_ms(m, n_img, 32)
+    busy = device_busy_ms(lambda: ask.logits(img, VQA_QUESTIONS[0]))
+    nums = {"record_s": seconds, "build_s": build_s, "peak_gib": peak, "vila_ms": call_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "busy_share": busy / call_ms,
+            "vqa_yes": bool(sc.vqa_yes), "status": line["status"]}
+    print(f"color_alter record with VILA-1.5 (vicuna-7B + CLIP ViT-L/336, built in "
+          f"{build_s:.2f} s) as the post-filter's VQA: {line['status']} in {seconds:.3f} s, "
+          f"vqa_yes {sc.vqa_yes} (VILA's answer), peak {peak:.2f} GiB; launches {launches}; "
+          f"VILA call {call_ms:.3f} ms ({', '.join(f'{t:.2f}' for t in runs)}) against a "
+          f"bound of {bound_ms:.3f} ms ({bound_by}: {tflop:.3f} TFLOP), device busy "
+          f"{nums['busy_share'] * 100:.1f} %", flush=True)
+    return launches, nums
+
+
+def ocr_record(dev, szoo, tb):
+    """One more textual_change record through `synth_executor` (gates open)
+    with "ocr" installed (GOT-OCR2 at published widths: SAM ViT-B at 1,024
+    px, Qwen2-0.5B, 32 new tokens at most): the reader runs on the
+    synthesized input and, at random weights, reads no quoted text, so the
+    pipeline's gate fails closed after that first read (its `and` needs
+    no second one): status `failure`, reason "OCR text mismatch", one read,
+    K1 0. Then one read of a 512 px frame in ms (median of 3). The slot is
+    taken off the toolbox after. Returns ((launches, K2 tally), numbers)."""
+    import torch
+    from anyedit_tpu_torch.core.schema import InstructionRecord
+
+    szoo.install(tb, "ocr")
+    reader, reads = tb.ocr, []
+    tb.ocr = lambda image: reads.append(reader(image)) or reads[-1]
+    rec = InstructionRecord.from_json(dict(SYNTH_RECORDS["textual_change"],
+                                           edit_type="textual_change", id="textual_ocr"))
+    img = np.random.default_rng(17).integers(0, 256, GROUND_HW + (3,), np.uint8)
+    (line,), seconds, launches, tally = synth_executor(tb, [rec], img)
+    tb.ocr = None
+    require(line["status"] == "failure"
+            and line["payload"].get("reason") == "OCR text mismatch" and len(reads) == 1,
+            f"the OCR gate failed closed after one read ({line}, reads {reads})")
+    require(launches["flash_nomax"] == 0 and sum(tally.values()) == launches["group_norm"],
+            f"the OCR-gated textual_change launched {launches}")
+    frame = np.random.default_rng(18).integers(0, 256, (512, 512, 3), np.uint8)
+    read_ms, runs = median_ms(lambda: reader(frame))
+    nums = {"record_s": seconds, "read_ms": read_ms, "text": reads[0]}
+    print(f"textual_change record with the GOT-OCR2 gate: {line['status']} "
+          f"({line['payload']['reason']}) in {seconds:.3f} s after {len(reads)} read "
+          f"({reads[0][:48]!r}); a 512 px read {read_ms:.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in runs)}); launches {launches}", flush=True)
+    return (launches, tally), nums
+
+
 def main() -> int:
     import torch
 
@@ -2863,6 +3319,9 @@ def main() -> int:
     with phase("visual reference"):
         check_visual_reference(dev)
 
+    with phase("llm reference"):
+        check_llm_reference(dev)
+
     with phase("lama"):
         lama_err, lama_ms = check_lama(dev)
 
@@ -2912,6 +3371,12 @@ def main() -> int:
     with phase("executor record"):
         e_launches, e_timing = executor_record(dev, zoo, k2_per_request)
         print(f"{card_line}: {e_timing['record_s']:.3f} s per gated executor record",
+              flush=True)
+
+    with phase("vila"):
+        vila_launches, vl = vila_record(dev, zoo, k2_per_request)
+        print(f"{card_line}: color_alter with VILA as the VQA judge {vl['record_s']:.3f} s a "
+              f"record; VILA {vl['vila_ms']:.3f} ms a call (bound {vl['bound_ms']:.3f} ms)",
               flush=True)
 
     with phase("slice 3 records"):
@@ -2969,6 +3434,7 @@ def main() -> int:
     with phase("flux"):
         szoo.install(stb, "flux_pair")
         synth_paths["flux"], fx, fargs, fout = flux_phase(dev, szoo, stb)
+        synth_paths["ocr"], ocr_nums = ocr_record(dev, szoo, stb)
         del stb, szoo
         gc.collect()
         torch.cuda.empty_cache()
@@ -2976,7 +3442,8 @@ def main() -> int:
         print(f"{card_line}: textual_change {fx['record_s']:.3f} s a record (peak "
               f"{fx['peak_gib']:.2f} GiB), Flux {fx['flux_ms']:.3f} ms a call at batch 1 "
               f"(bound {fx['bound_ms']:.3f} ms), W8A8 {f_qms:.3f} ms, cosine {f_cos:.5f} "
-              f"(build peak {f_qpeak:.2f} GiB)", flush=True)
+              f"(build peak {f_qpeak:.2f} GiB); OCR-gated textual_change "
+              f"{ocr_nums['record_s']:.3f} s, {ocr_nums['read_ms']:.2f} ms a read", flush=True)
         synth_rows = synth_k2_rows(dev, {p: t for p, (_, t) in synth_paths.items()})
 
     # the SDXL refine stack on a zoo of its own (freed before the W8A8 UNet)
@@ -3013,6 +3480,20 @@ def main() -> int:
         held |= {key for *_, key in sdxl_rows}
         visual_rows, visual_seen = new_k2_rows(
             dev, {p: t for p, (_, t) in visual_paths.items() if t}, held)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Llama-3-8B instruction generation on models of its own (freed after)
+    with phase("llm"):
+        llm_launches, lx = llm_phase(dev)
+        print(f"{card_line}: {lx['batch_s']:.3f} s per batch of {INSTR_BATCH} instruction "
+              f"records with the self-check ({lx['records_per_hour']:.1f} records/hour, busy "
+              f"{lx['busy_share'] * 100:.1f} %); bf16 prefill {lx['bf16_prefill_ms']:.2f} ms "
+              f"(bound {lx['bf16_prefill_bound_ms']:.2f}), decode {lx['bf16_decode_ms']:.3f} ms "
+              f"a step (bound {lx['bf16_decode_bound_ms']:.3f}); W8A8 prefill "
+              f"{lx['w8a8_prefill_ms']:.2f} ms (bound {lx['w8a8_prefill_bound_ms']:.2f}), "
+              f"decode {lx['w8a8_decode_ms']:.3f} ms (bound {lx['w8a8_decode_bound_ms']:.3f}); "
+              f"peak {lx['peak_gib']:.2f} GiB", flush=True)
 
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3044,6 +3525,8 @@ def main() -> int:
         row["launches_executor_record"] = e_launches[row["name"]]
         row["launches_chunk"] = ch["launches"]["chunk"][row["name"]]
         row["launches_bucket"] = ch["launches"]["bucket"][row["name"]]
+        row["launches_vila"] = vila_launches[row["name"]]
+        row["launches_llm"] = llm_launches[row["name"]]
     # K1 runs at no shape on the geometry, UltraEdit and caption-pair paths:
     # 0 launches
     kernels[0]["launches_geometry"] = geo_launches["flash_nomax"]

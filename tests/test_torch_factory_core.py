@@ -186,8 +186,9 @@ def test_tiny_zoo_config_matches_jax():
     """The port's tiny config against `anyedit_tpu/cli.py::tiny_zoo_config`
     on every field they share, `box_threshold` (0.0) included, UltraEdit's
     fields (`sd3_vae`, `text_g`, `flux_text`, whose vocabulary is the T5
-    hash modulus, and `mmdit`) and the SDXL refine stack's (`refine_unet`:
-    TINY_XL_UNET at a context of 48, `sdxl_vae`, `depth_cfg`: TINY_DEPTH)."""
+    hash modulus, and `mmdit`), the SDXL refine stack's (`refine_unet`:
+    TINY_XL_UNET at a context of 48, `sdxl_vae`, `depth_cfg`: TINY_DEPTH)
+    and the two LM gates' (`ocr`: TINY_OCR, `vila`: TINY_VILA)."""
     port, ref = tiny_zoo_config(), jax_tiny_zoo_config()
     assert port.box_threshold == ref.box_threshold == 0.0
     assert port.flux_text.vocab_size == ref.flux_text.vocab_size == 30522
@@ -197,6 +198,6 @@ def test_tiny_zoo_config_matches_jax():
     shared = _fields(port).keys() & _fields(ref).keys()
     assert {"canvas", "gdino", "sam", "ip2p_unet", "vae", "text", "vision", "eva",
             "qformer", "box_threshold", "sd3_vae", "text_g", "flux_text", "mmdit",
-            "refine_unet", "sdxl_vae", "depth_cfg"} <= shared
+            "refine_unet", "sdxl_vae", "depth_cfg", "ocr", "vila"} <= shared
     for name in sorted(shared):
         _compare(getattr(port, name), getattr(ref, name), f"cfg.{name}")

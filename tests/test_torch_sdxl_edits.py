@@ -448,7 +448,7 @@ def test_install_new_slots(monkeypatch):
                              "sdxl_material"}
     assert tb.canny(IMG).shape == (H, W) and tb.depth(IMG).shape == (H, W)
     with pytest.raises(KeyError, match="unknown toolbox slot"):
-        zoo.install(tb, "ocr")
+        zoo.install(tb, "llama")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     card = ModelZoo(tiny_zoo_config())
     for fn in (card.img2img_fn, card.sdxl_material_fn, card.depth_fn):
