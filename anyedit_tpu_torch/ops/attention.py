@@ -17,6 +17,13 @@ in the JAX package; the kernels take (BH, L, D).
 Each kernel wrapper takes its plain version for CPU tensors, launches its
 kernel for CUDA tensors (raising on what the kernel does not take), and
 counts its launches in `<wrapper>.launches`.
+
+Gradients, as in the JAX package: a kernel writes into a fresh tensor
+through a raw pointer, so under grad K1 (`attention`'s route) and K4
+(`self_attn_int8`) run inside `_RecomputeAttnFn`, whose backward is the
+autograd of `sdpa` on the saved q, k, v (the JAX `_self_attn_flash_bwd`;
+for K4 on the unquantized inputs). Without grad they are the direct calls.
+K3 has no VJP: `flash_attention` raises when a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -153,6 +160,10 @@ def _k3_warps(d: int) -> int:
     return 8 if d <= 128 else 4
 
 
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, kv_len: int | None = None) -> torch.Tensor:
     """Online-softmax attention in fp32, q: (BH, Lq, D), k/v: (BH, Lkv, D),
@@ -160,7 +171,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     caller that pads the keys passes the true count.
 
     CPU tensors take the plain version. CUDA tensors launch K3, which takes
-    contiguous bf16 or fp32 and D <= 256; anything else raises."""
+    contiguous bf16 or fp32 and D <= 256; anything else raises. Under grad
+    with an input that requires it, it raises on every device: K3 has no
+    VJP, as the JAX `flash_attention` has none."""
+    if _wants_grad(q, k, v):
+        raise RuntimeError("flash_attention (K3) has no VJP, as in the JAX package: "
+                           "take attention(use_flash=None) or run under torch.no_grad()")
     kv_len = k.shape[1] if kv_len is None else kv_len
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, kv_len)
@@ -325,15 +341,55 @@ def _heads(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(b * h, l, d).contiguous()
 
 
+class _RecomputeAttnFn(torch.autograd.Function):
+    """A hand kernel's forward over (B, H, L, D) q, k, v; the backward is
+    the autograd of `sdpa` at the same scale on the saved inputs (fp32
+    logits and softmax, probabilities cast to v's dtype)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return kernel(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+            out = sdpa(*ins, scale=ctx.scale)
+            want = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, want, grad))
+        return tuple(next(got) if t.requires_grad else None for t in ins) + (None, None)
+
+
+def _k1(q, k, v, scale):
+    b, h, l, d = q.shape
+    return flash_nomax(_heads(q), _heads(k), _heads(v), scale).reshape(b, h, l, d)
+
+
+def _k4(q, k, v, scale):
+    b, h, l, d = q.shape
+    return flash_int8(_heads(q), _heads(k), _heads(v), scale).reshape(b, h, l, d)
+
+
+def _recompute_route(kernel, q, k, v, scale):
+    """`kernel(q, k, v, scale)`, through `_RecomputeAttnFn` under grad."""
+    if _wants_grad(q, k, v):
+        return _RecomputeAttnFn.apply(q, k, v, scale, kernel)
+    return kernel(q, k, v, scale)
+
+
 def self_attn_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float | None = None) -> torch.Tensor:
     """INT8 self-attention over (B, H, L, D) through `flash_int8` at its
-    default 512-key blocks (the JAX `_self_attn_int8`, forward only: its
-    recompute backward comes with the training slice)."""
-    b, h, l, d = q.shape
+    default 512-key blocks (the JAX `_self_attn_int8`). Under grad, the
+    backward recomputes through `sdpa` on the unquantized inputs, as the
+    JAX VJP does: the int8 path serves only, but a stray gradient must not
+    crash or stop silently."""
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    return flash_int8(_heads(q), _heads(k), _heads(v), scale).reshape(b, h, l, d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _recompute_route(_k4, q, k, v, scale)
 
 
 def _on_k1_route(lq: int, lkv: int, d: int) -> bool:
@@ -350,7 +406,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Lq % 512 == 0, D <= 128: the UNet's level-0 and level-1
         self-attention) goes to K1, everything else to `sdpa`;
       * use_flash=False: `sdpa`;
-      * use_flash=True: K3 at every shape, keys masked at the true Lkv.
+      * use_flash=True: K3 at every shape, keys masked at the true Lkv
+        (it raises under grad: K3 has no VJP).
+    Under grad, K1 runs inside `_RecomputeAttnFn`.
     `int8` (the W8A8 fast mode's flag) is accepted and changes nothing, as
     in the JAX package, where `attention()` never reads it: the int8 kernel
     K4 is reached only through `self_attn_int8`."""
@@ -361,7 +419,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / math.sqrt(d)
     if use_flash is None:
         if _on_k1_route(lq, lkv, d):
-            return flash_nomax(_heads(q), _heads(k), _heads(v), scale).reshape(b, h, lq, d)
+            return _recompute_route(_k1, q, k, v, scale)
         use_flash = False
     if not use_flash:
         return sdpa(q, k, v, scale=scale)

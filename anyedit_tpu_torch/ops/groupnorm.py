@@ -10,6 +10,12 @@ kernel only because a `pallas_call` breaks XLA's fusion on the TPU. Eager
 PyTorch has no such fusion to lose, so every GroupNorm of the port's models
 goes through `group_norm`: K2 on CUDA tensors, the plain version on CPU
 tensors.
+
+The trainers differentiate through it. K2 writes into a fresh tensor
+through a raw pointer, so its output has no autograd history of its own:
+under grad, `group_norm` wraps the launch in `_GroupNormFn`, whose backward
+recomputes through `group_norm_plain` on the saved x, scale and bias (the
+JAX `_gn_pallas_bwd`). The backward launches no K2.
 """
 
 from __future__ import annotations
@@ -86,6 +92,27 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+class _GroupNormFn(torch.autograd.Function):
+    """K2 forward, recompute backward: the gradients of `group_norm_plain`
+    at the saved inputs, for x and for scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, silu)
+        return _group_norm_launch(x, scale, bias, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
+            y = group_norm_plain(*ins, *ctx.args)
+            got = iter(torch.autograd.grad(y, [t for t, r in zip(ins, need) if r], grad))
+        return tuple(next(got) if r else None for r in need) + (None, None, None)
+
+
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5,
                silu: bool = False) -> torch.Tensor:
@@ -93,7 +120,18 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch K2, which takes
     contiguous bf16 or fp32 x with fp32 scale and bias; anything else
-    raises."""
+    raises. Under grad, with an input that requires it, the call goes
+    through `_GroupNormFn` (the same forward, a recompute backward);
+    otherwise it is the direct call."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormFn.apply(x, scale, bias, num_groups, eps, silu)
+    return _group_norm_launch(x, scale, bias, num_groups, eps, silu)
+
+
+def _group_norm_launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       num_groups: int, eps: float, silu: bool) -> torch.Tensor:
+    """`group_norm`'s forward: the plain version for CPU tensors, else K2."""
     n, c = x.shape[:2]
     if c % num_groups:
         raise ValueError(f"group_norm: {c} channels in {num_groups} groups")

@@ -374,3 +374,122 @@ def check_div_ties(device, seed: int = 4) -> dict:
         res["ties"] += int(((q - 63.5).abs() < 1e-5).sum())
         res["codes"] += x.numel()
     return res
+
+
+# ---- backward passes (the trainers' route) --------------------------------
+
+def _grad_errors(got, ref) -> dict:
+    """Largest absolute and relative-L2 distance over a list of gradients."""
+    diffs = [(a.float() - b.float()) for a, b in zip(got, ref)]
+    return {"max_abs_err": max(float(d.abs().max()) for d in diffs),
+            "rel_l2": max(float(d.norm() / b.float().norm().clamp(min=1e-30))
+                          for d, b in zip(diffs, ref)),
+            "finite": all(bool(torch.isfinite(a.float()).all()) for a in got)}
+
+
+def _bwd_ms(fn, inputs, grad, iters: int) -> float:
+    """ms of the backward alone: `fn(*inputs)` once, then
+    `torch.autograd.grad` over its graph, kept between runs."""
+    out = fn(*inputs)
+    return time_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), iters)
+
+
+def _fwd_bwd_ms(fn, inputs, grad, iters: int) -> float:
+    return time_ms(lambda: torch.autograd.grad(fn(*inputs), inputs, grad), iters)
+
+
+def check_flash_nomax_grad(bh: int, l: int, d: int, device, seed: int = 5,
+                           iters: int = 5) -> dict:
+    """K1 under grad (`attention`'s route: K1 forward, the recompute
+    backward through `sdpa`) against the autograd of K1's plain version, on
+    the same N(0, 1) bf16 q, k, v of shape (1, bh, l, d) and a N(0, 1) bf16
+    output gradient. `max_abs_err` and `rel_l2` are the worst over dq, dk,
+    dv; `fwd_max_abs_err`, `fwd_mean_abs_err` and `fwd_finite` hold the
+    Function's output against the plain version's; `launches` counts K1 in
+    one forward and backward (1: the backward launches none). Times: `fwd_ms` (the Function's forward), `ms` (its
+    backward alone), `plain_ms` (the plain version's backward alone),
+    `library_ms` (`F.scaled_dot_product_attention`'s backward alone) and
+    `library_fwd_bwd_ms`, `fwd_bwd_ms` (both passes). `bound_ms` is the
+    backward's: 2.5x the forward's tensor-core operations (the products
+    QK^T and PV again, then dP, dQ, dK, dV, half of which the forward's
+    two stand for), one exp a logit, and q, k, v, dO read and dq, dk, dv
+    written once."""
+    from anyedit_tpu_torch.ops.attention import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(1, bh, l, d, generator=g, device=device).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    ins = [t.requires_grad_() for t in (q, k, v)]
+
+    def plain(q, k, v):
+        return flash_nomax_plain(q[0], k[0], v[0], scale)[None]
+
+    n0 = flash_nomax.launches
+    out = attention(*ins, scale=scale)
+    got = torch.autograd.grad(out, ins, do)
+    res = {"launches": flash_nomax.launches - n0, "has_grad_fn": out.grad_fn is not None}
+    ref = plain(*ins)
+    res.update(_grad_errors(got, torch.autograd.grad(ref, ins, do)))
+    res.update({f"fwd_{k}": x for k, x in _errors(out.detach(), ref.detach()).items()})
+    lib = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    fn = lambda q, k, v: attention(q, k, v, scale=scale)
+    with torch.no_grad():
+        res["fwd_ms"] = time_ms(lambda: attention(q, k, v, scale=scale), iters)
+    res["ms"] = _bwd_ms(fn, ins, do, iters)
+    res["fwd_bwd_ms"] = _fwd_bwd_ms(fn, ins, do, iters)
+    res["plain_ms"] = _bwd_ms(plain, ins, do, iters)
+    res["library_ms"] = _bwd_ms(lib, ins, do, iters)
+    res["library_fwd_bwd_ms"] = _fwd_bwd_ms(lib, ins, do, iters)
+    res["library"] = "F.scaled_dot_product_attention, backward"
+    res.update(roofline(2.5 * 4 * bh * l * l * d, PEAK_BF16, 7 * q.numel() * 2,
+                        exps=bh * l * l))
+    return res
+
+
+def check_group_norm_grad(shape, silu: bool, device, seed: int = 6,
+                          iters: int = 5) -> dict:
+    """K2 under grad (`group_norm`'s route: K2 forward, the recompute
+    backward through `group_norm_plain`) against the autograd of the plain
+    version, on the same bf16 x of `shape` (NCHW, 32 groups), fp32 scale
+    and bias near 1 and 0, and a N(0, 1) bf16 output gradient: dx, dscale,
+    dbias, and the output (`fwd_*`, as `check_flash_nomax_grad`'s). Times as `check_flash_nomax_grad`'s; the library is
+    `F.group_norm` (then `F.silu`) on bf16 copies of the affine. `bound_ms`
+    is the backward's: x and dy read, dx written, the affine and its
+    gradients once."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    dy = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    scale = (torch.randn(c, generator=g, device=device) * 0.1 + 1)
+    bias = torch.randn(c, generator=g, device=device) * 0.1
+    ins = [t.requires_grad_() for t in (x, scale, bias)]
+    fn = lambda x, s, b: group_norm(x, s, b, 32, silu=silu)
+    plain = lambda x, s, b: group_norm_plain(x, s, b, 32, silu=silu)
+
+    n0 = group_norm.launches
+    out = fn(*ins)
+    got = torch.autograd.grad(out, ins, dy)
+    res = {"launches": group_norm.launches - n0, "has_grad_fn": out.grad_fn is not None}
+    ref = plain(*ins)
+    res.update(_grad_errors(got, torch.autograd.grad(ref, ins, dy)))
+    res.update({f"fwd_{k}": x for k, x in _errors(out.detach(), ref.detach()).items()})
+    lib_ins = [x, scale.detach().to(torch.bfloat16).requires_grad_(),
+               bias.detach().to(torch.bfloat16).requires_grad_()]
+    if silu:
+        lib = lambda x, s, b: F.silu(F.group_norm(x, 32, s, b, 1e-5))
+    else:
+        lib = lambda x, s, b: F.group_norm(x, 32, s, b, 1e-5)
+    with torch.no_grad():
+        res["fwd_ms"] = time_ms(lambda: fn(x, scale, bias), iters)
+    res["ms"] = _bwd_ms(fn, ins, dy, iters)
+    res["fwd_bwd_ms"] = _fwd_bwd_ms(fn, ins, dy, iters)
+    res["plain_ms"] = _bwd_ms(plain, ins, dy, iters)
+    res["library_ms"] = _bwd_ms(lib, lib_ins, dy, iters)
+    res["library_fwd_bwd_ms"] = _fwd_bwd_ms(lib, lib_ins, dy, iters)
+    res["library"] = ("F.group_norm, then F.silu, backward" if silu
+                      else "F.group_norm, backward")
+    res.update(roofline(20 * x.numel(), PEAK_FP32, 3 * x.numel() * 2 + 4 * c * 4,
+                        exps=x.numel() if silu else 0))
+    return res

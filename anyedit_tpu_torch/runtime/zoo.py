@@ -22,7 +22,10 @@ the whole list, then the same per-record tail.
 `ModelZoo(cfg, device).ip2p()` returns `edit(image_u8, instruction, mask01,
 steps, s_txt, s_img, seed)`: lanczos resize to the canvas -> VAE encode ->
 CLIP text for the instruction and for "" -> 3-way-CFG DDIM loop on the IP2P
-UNet -> VAE decode -> lanczos resize back to the input size.
+UNet -> VAE decode -> lanczos resize back to the input size. With
+`ZooConfig.lcm_steps` > 0 the loop is the distilled student's
+`lcm_edit` (one UNet row a step, a masked edit composited once at x0), the
+student's tree given as "unet_ip2p", as the JAX zoo's LCM branch.
 `edit.batch(images, instructions, masks, steps, s_txt, s_img, seeds)` runs
 the same over chunks of at most `edit_batch_bucket` records, one batch-3n
 UNet call per step, each record's start latents drawn as `edit` draws them
@@ -30,8 +33,8 @@ for its seed. Parameters come from Flax trees through `weights/bridge.py`
 (`params=`), or from a seeded init on the device. With `quant_ip2p` (or
 `quant_diffusion`) the float UNet parameters are quantized once at slot
 build into the W8A8 UNet, as the JAX zoo does. The JAX zoo's fused/stepwise
-compile split, its bucket padding and its LCM branch have no counterpart
-here: the port runs one Python denoise loop at the batch it is given.
+compile split and its bucket padding have no counterpart here: the port
+runs one Python denoise loop at the batch it is given.
 
 `inpainter()` returns LaMa's `inpaint(img01, mask01) -> img01` (reflect-
 padded to a multiple of 8, fp32, cuDNN's TF32 off for the call);
@@ -181,6 +184,7 @@ from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
 )
 from anyedit_tpu_torch.schedulers import make_noise_schedule
+from anyedit_tpu_torch.train.distill import DistillConfig, lcm_edit
 from anyedit_tpu_torch.weights import bridge
 from anyedit_tpu_torch.weights.init import seeded_init_
 
@@ -234,6 +238,11 @@ class ZooConfig:
     # records per batch-3n UNet call of `ip2p().batch` (the chunk-mode
     # executor's batched edit stage)
     edit_batch_bucket: int = 4
+    # > 0: the IP2P slot runs the distilled few-step consistency editor
+    # (`train/distill.py::lcm_edit`, one UNet row a step) on the student
+    # given as the "unet_ip2p" tree; the caller's steps and scales are the
+    # teacher's knobs, folded into the student, and are ignored
+    lcm_steps: int = 0
 
 
 def tiny_zoo_config() -> ZooConfig:
@@ -895,10 +904,25 @@ class ModelZoo:
             dev = self.device
 
             def run(lat, cond, mask, init, renoise, steps, s_txt, s_img):
+                if c.lcm_steps > 0:
+                    # one x0 composite at the end, as the JAX LCM branch
+                    out = lcm_edit(unet, ns, lcm_cfg, lat, cond, c.lcm_steps,
+                                   x_init=init, renoise=renoise)
+                    return out if mask is None else mask * out + (1.0 - mask) * lat
                 return ip2p_edit(unet, ns, lat, cond, text("").to(torch.bfloat16).expand_as(cond),
                                  num_steps=steps, guidance_scale=s_txt,
                                  image_guidance_scale=s_img, mask=mask,
                                  init_latents=init.to(dev), renoise=renoise)
+
+            lcm_cfg = DistillConfig(unet=c.ip2p_unet)
+
+            def draw_renoise(shape, gen):
+                """The masked edit's re-noise draw, or in LCM mode the
+                sampler's lcm_steps - 1 re-noise draws, stacked."""
+                if c.lcm_steps > 0:
+                    return torch.stack([torch.randn(shape, generator=gen, device=dev)
+                                        for _ in range(c.lcm_steps - 1)])
+                return torch.randn(shape, generator=gen, device=dev)
 
             @torch.inference_mode()
             def edit(image_u8, instruction: str, mask01=None, steps: int = 50,
@@ -909,14 +933,16 @@ class ModelZoo:
 
                 The start latents and the masked edit's re-noise noise are
                 drawn from `torch.Generator(seed)` unless given (NHWC,
-                (1, size/down, size/down, latent channels))."""
+                (1, size/down, size/down, latent channels)). With
+                `lcm_steps`, `renoise` is the consistency sampler's
+                lcm_steps - 1 re-noise draws, stacked on a leading axis."""
                 lat_in = self._to_latents([image_u8])
                 m = None if mask01 is None else self._latent_mask(mask01, 0.5)[None]
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 if init_latents is None:
                     init_latents = torch.randn(lat_in.shape, generator=gen, device=dev)
                 if renoise is None:
-                    renoise = torch.randn(lat_in.shape, generator=gen, device=dev)
+                    renoise = draw_renoise(lat_in.shape, gen)
                 out = run(lat_in, text(instruction).to(torch.bfloat16), m, init_latents,
                           renoise.to(dev), steps, s_txt, s_img)
                 return self._from_latents(out, [image_u8.shape[:2]])[0]
@@ -936,7 +962,10 @@ class ModelZoo:
                 all-ones mask and the chunk one batch-wide re-noise draw
                 (`renoise[chunk]`, or `torch.Generator(0)`'s first draw), as the
                 JAX `ip2p_batch_fn` does; per-record re-noise parity is no
-                contract there."""
+                contract there. With `lcm_steps`, each record draws its
+                sampler's re-noise after its start latents from its own
+                generator, as `edit` does (`renoise`: (lcm_steps - 1, n, ...)),
+                so every record equals its `edit`, masked or not."""
                 n = len(images)
                 if len(instructions) != n:
                     raise ValueError(f"{n} images, {len(instructions)} instructions")
@@ -948,18 +977,23 @@ class ModelZoo:
                     imgs = images[part]
                     lat = self._to_latents(imgs)
                     cond = torch.cat([text(t) for t in instructions[part]]).to(torch.bfloat16)
+                    gens = [torch.Generator(device=dev).manual_seed(sd) for sd in seeds[part]]
+                    one = (1,) + lat.shape[1:]
                     init = init_latents[part] if init_latents is not None else torch.cat([
-                        torch.randn((1,) + lat.shape[1:], device=dev,
-                                    generator=torch.Generator(device=dev).manual_seed(sd))
-                        for sd in seeds[part]])
+                        torch.randn(one, device=dev, generator=g) for g in gens])
                     mask = ren = None
+                    if c.lcm_steps > 0:
+                        # each record's re-noise draws, as `edit` draws them
+                        ren = renoise[:, part].to(dev) if renoise is not None else torch.cat(
+                            [draw_renoise(one, g) for g in gens], dim=1)
                     if any(m is not None for m in masks[part]):
                         ones = torch.ones(lat.shape[1:3] + (1,), device=dev)
                         mask = torch.stack([ones if m is None else self._latent_mask(m, 0.5)
                                             for m in masks[part]])
-                        ren = renoise[part].to(dev) if renoise is not None else torch.randn(
-                            lat.shape, device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(0))
+                        if c.lcm_steps == 0:
+                            ren = renoise[part].to(dev) if renoise is not None else torch.randn(
+                                lat.shape, device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))
                     lat = run(lat, cond, mask, init, ren, steps, s_txt, s_img)
                     out += self._from_latents(lat, [im.shape[:2] for im in imgs])
                 return out

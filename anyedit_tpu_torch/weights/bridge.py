@@ -1304,3 +1304,25 @@ def ocr_state_dict(tree: Mapping[str, Any]):
 
 def ocr_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
     return _to_tree(like, sd, _ocr_key)
+
+
+# ---- AnySD's task-routed adapter (`train/anysd.py::TaskMoEAdapter`) ----------
+
+def _anysd_adapter_key(path: tuple[str, ...]):
+    p = _strip(path)
+    if len(p) == 1:                      # expert_w1, expert_w2, task_embs
+        return p[0], _ID
+    return {("out_ln", "scale"): ("out_ln.weight", _ID),
+            ("out_ln", "bias"): ("out_ln.bias", _ID),
+            ("task_proj", "kernel"): ("task_proj.weight", _LINEAR),
+            ("task_proj", "bias"): ("task_proj.bias", _ID)}[tuple(p)]
+
+
+def anysd_adapter_state_dict(tree: Mapping[str, Any]):
+    """Flax `TaskMoEAdapter` params -> the port's adapter state dict."""
+    return _bridge(tree, _anysd_adapter_key)
+
+
+def anysd_adapter_tree(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's adapter state dict -> a Flax tree of `like`'s structure."""
+    return _to_tree(like, sd, _anysd_adapter_key)
