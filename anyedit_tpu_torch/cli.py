@@ -1,18 +1,31 @@
 """`python -m anyedit_tpu_torch` — the port's command line (counterpart of
-`anyedit_tpu/cli.py`; its `train` and `edit` commands).
+`anyedit_tpu/cli.py`).
 
+  run       stream records through pre_filter -> edit -> post_filter
+  eval      score a run's edited pairs (CLIP / dirCLIP / L1 / SSIM / DINO,
+            the post-filter pass rate per edit type)
+  export    ledger -> reference-format result JSONs
+  generate  captions -> instruction records (template or llama backend)
+  convert   an official torch checkpoint -> the zoo's <slot>.safetensors
+  bench     throughput benchmark (`tools/bench_torch_ip2p.py`)
   train     AnySD Stage-II fine-tune from a factory success ledger
   edit      edit one image with a trained AnySD adapter checkpoint
 
 The flags and defaults are the JAX commands', plus `--device` (default
-"cuda": the card; "cpu" where the caller asks for it). The port reads no
-`.msgpack`: `--weights-dir` gives tokenizer assets only, and the frozen
-towers' Flax trees come through `main(argv, params=...)` ("vae",
-"clip_text", "clip_vision", "unet_ip2p"); without them the towers are
-seeded on the device. The JAX mesh (dp / tp / ep sharding) has no
-counterpart: one process trains on one device. Step s draws its timesteps,
-noise and dropout from `torch.Generator` seeded with (seed << 32) + s, so a
-resumed run draws what an uninterrupted one would.
+"cuda": the card; "cpu" where the caller asks for it; without CUDA,
+"cuda" raises). A weights directory (`run --weights`, `eval --weights`,
+`generate --weights`) holds `<slot>.safetensors` files as `convert` writes
+them, under the JAX zoo's slot names, and the tokenizer assets; Flax
+`.msgpack` trees are refused. `train` / `edit` read tokenizer assets only
+from `--weights-dir`; the frozen towers' Flax trees come through
+`main(argv, params=...)` ("vae", "clip_text", "clip_vision", "unet_ip2p").
+`run` and `generate` take Flax trees there too (the zoo's slot names, and
+"llama"), which the tests use. Images are read with `core/image.py::
+load_rgb`, which decodes PNG without Pillow; the GPU machine has no
+Pillow, so inputs there must be PNG. The JAX mesh (dp / tp / ep sharding)
+has no counterpart: one process runs on one device. In `train`, step s
+draws its timesteps, noise and dropout from `torch.Generator` seeded with
+(seed << 32) + s, so a resumed run draws what an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -180,11 +193,284 @@ def cmd_train(args, params=None) -> int:
     return 0
 
 
+def _add_shard_args(p):
+    p.add_argument("--shard-index", type=int, default=0)
+    p.add_argument("--shard-count", type=int, default=1)
+    p.add_argument("--start-idx", type=int, default=None)
+    p.add_argument("--end-idx", type=int, default=None)
+
+
+def _zoo_cfg(args):
+    import dataclasses
+
+    from anyedit_tpu_torch.runtime.zoo import ZooConfig, tiny_zoo_config
+    cfg = tiny_zoo_config() if args.tiny else ZooConfig()
+    if getattr(args, "int8", False):
+        cfg = dataclasses.replace(cfg, quant_ip2p=True, quant_diffusion=True)
+    if getattr(args, "lcm_steps", 0):
+        cfg = dataclasses.replace(cfg, lcm_steps=args.lcm_steps)
+    return cfg
+
+
+def cmd_run(args, params=None) -> int:
+    """Stream records through the factory: the slots the records' edit
+    types need (`SLOTS_FOR_EDIT_TYPE`) plus the gate scorers, the IP2P
+    editor only for color_alter / tone_transfer / style_change, then
+    `FactoryExecutor` (chunk mode with --ground-batch > 0)."""
+    from anyedit_tpu_torch.core.ledger import Shard
+    from anyedit_tpu_torch.core.schema import read_records
+    from anyedit_tpu_torch.runtime.executor import ExecutorConfig, FactoryExecutor
+    from anyedit_tpu_torch.runtime.zoo import SLOTS_FOR_EDIT_TYPE, ModelZoo
+
+    records = read_records(args.instruction_json)
+    if args.edit_type:
+        records = [r for r in records if r.edit_type == args.edit_type]
+    if not records:
+        print("no records to process", file=sys.stderr)
+        return 1
+
+    zoo_cfg = _zoo_cfg(args)
+    zoo = ModelZoo(zoo_cfg, device=args.device, seed=args.seed, params=params,
+                   weights_dir=args.weights, require_weights=args.require_weights)
+    types = {r.edit_type for r in records}
+    # the WYS-IP2P editor backs color / tone / style (and appearance's fallback)
+    needs_ip2p = bool(types & {"color_alter", "tone_transfer", "style_change"})
+    slots = [s for t in sorted(types) for s in SLOTS_FOR_EDIT_TYPE.get(t, ())]
+    slots += ["clip", "aesthetic"]          # the filter gates' scorers
+    if types & {"background_change", "color_alter"}:
+        slots += ["vqa"]
+    tb = zoo.toolbox(with_diffusion=needs_ip2p, slots=slots)
+    loaders = record_loaders(Path(args.image_root), zoo_cfg.canvas.edit_size)
+    tb.extra.setdefault("load_visual", loaders["load_visual"])
+    tb.extra.setdefault("load_rotation_pair", loaders["load_rotation_pair"])
+
+    ex = FactoryExecutor(tb, ExecutorConfig(
+        output_root=args.output, seed=args.seed,
+        run_pre_filter=not args.no_filters, run_post_filter=not args.no_filters,
+        profile_trace_dir=args.profile_trace, grounding_batch=args.ground_batch))
+    shard = Shard(args.shard_index, args.shard_count, args.start_idx, args.end_idx)
+    report = ex.run(records, loaders["load_image"], shard=shard)
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def record_loaders(image_root: Path, canvas: int) -> dict:
+    """`run`'s image hooks: "load_image" (a neutral 127 canvas when the
+    record has no image_file: composition and textual_change synthesize
+    both sides), "load_visual" (the record's visual_input under
+    image_root, else the record's own image) and "load_rotation_pair"
+    (extras["rotation"] = {frame_a, frame_b (paths), q1, q2 (wxyz)}: the
+    capture pair and its COLMAP quaternions, or None)."""
+    from anyedit_tpu_torch.core.image import load_rgb
+
+    def load_image(rec):
+        if not rec.image_file:
+            return np.full((canvas, canvas, 3), 127, np.uint8)
+        return load_rgb(image_root / rec.image_file)
+
+    def load_visual(rec):
+        if rec.visual_input and (image_root / rec.visual_input).exists():
+            return load_rgb(image_root / rec.visual_input)
+        return load_image(rec)
+
+    def load_rotation_pair(rec):
+        rot = rec.extras.get("rotation")
+        if not rot:
+            return None
+        return (load_rgb(image_root / rot["frame_a"]), load_rgb(image_root / rot["frame_b"]),
+                np.asarray(rot["q1"], np.float64), np.asarray(rot["q2"], np.float64))
+    return {"load_image": load_image, "load_visual": load_visual,
+            "load_rotation_pair": load_rotation_pair}
+
+
+def cmd_eval(args, params=None) -> int:
+    """Score a finished run's edited pairs (`runtime/evaluate.py`) on a
+    bare Toolbox with only the CLIP towers and the DINO embedding."""
+    from anyedit_tpu_torch.edits.types import Toolbox
+    from anyedit_tpu_torch.runtime.evaluate import default_loader, evaluate_pairs, run_dir_entries
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo
+
+    entries = run_dir_entries(args.run_dir)
+    if not entries:
+        print("no success entries in ledger", file=sys.stderr)
+        return 1
+    zoo = ModelZoo(_zoo_cfg(args), device=args.device, seed=args.seed, params=params,
+                   weights_dir=args.weights, require_weights=args.require_weights)
+    tb = Toolbox(ground=None, inpaint=None)
+    zoo.install(tb, "clip")
+    zoo.install(tb, "dino")
+    report = evaluate_pairs(tb, entries, default_loader(args.run_dir, args.image_root))
+    with open(args.output, "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"overall": report["overall"], "per_type": report["per_type"]}))
+    return 0
+
+
+def cmd_export(args, params=None) -> int:
+    from anyedit_tpu_torch.core.ledger import RunLedger
+    led = RunLedger(args.ledger)
+    led.export_reference_files(args.output, args.start or 0, args.end)
+    led.close()
+    print(f"exported to {args.output}")
+    return 0
+
+
+def _llama(args, params):
+    """The instruction generator's Llama: TINY_LLAMA with --tiny, else
+    Llama-3-8B (W8A8 with --int8); from `params["llama"]` (a Flax tree),
+    else `<weights>/llama.safetensors`, else seeded."""
+    import dataclasses
+
+    import torch
+
+    from anyedit_tpu_torch.models.llama import LLAMA3_8B, TINY_LLAMA, Llama, quantize_llama
+    from anyedit_tpu_torch.weights import bridge
+    from anyedit_tpu_torch.weights.files import read_safetensors
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    cfg = TINY_LLAMA if args.tiny else LLAMA3_8B
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("generate: device cuda requested but CUDA is not available; "
+                           "pass --device cpu to run on the CPU")
+    model = Llama(cfg, device=args.device)
+    wf = Path(args.weights) / "llama.safetensors" if args.weights else None
+    if params and "llama" in params:
+        if wf is not None and wf.exists():
+            raise ValueError(f"llama is given both in params= and as {wf}")
+        model.load_state_dict(bridge.llama_state_dict(params["llama"]), strict=True)
+    elif wf is not None and wf.exists():
+        model.load_state_dict(read_safetensors(wf), strict=True)
+    elif args.require_weights:
+        raise FileNotFoundError(f"required weights missing: {wf} (for Llama); convert the "
+                                "checkpoint first or drop --require-weights")
+    else:
+        seeded_init_(model, args.seed)
+    model = model.eval().requires_grad_(False)
+    return quantize_llama(model) if args.int8 and not args.tiny else model
+
+
+def cmd_generate(args, params=None) -> int:
+    """Captions -> instruction-record JSONL: few-shot prompt -> LLM generate
+    -> parse -> self-check; the rule-based types (counting, relation,
+    resize, movement) go to the rule generators. Backends: `template`
+    (deterministic) or `llama` (byte tokens; random weights give
+    throughput only)."""
+    import random as _random
+
+    from anyedit_tpu_torch.core.schema import write_records
+    from anyedit_tpu_torch.grounding.tags import generate_tags
+    from anyedit_tpu_torch.instructions.generator import (
+        InstructionGenerator, LlamaBackend, TemplateBackend, rule_based_counting,
+        rule_based_relation, rule_based_resize_movement,
+    )
+
+    captions = [ln.strip() for ln in open(args.captions) if ln.strip()][:args.limit or None]
+    rng = _random.Random(args.seed)
+
+    if args.edit_type in ("counting", "resize", "movement", "relation"):
+        recs = []
+        for cap in captions:
+            nouns = generate_tags(cap)["nouns"]
+            if not nouns:
+                continue
+            if args.edit_type == "counting":
+                recs.append(rule_based_counting(cap, nouns[0], rng.randint(2, 6), rng))
+            elif args.edit_type == "relation":
+                if len(nouns) >= 2:
+                    recs.append(rule_based_relation(cap, nouns[0], nouns[1]))
+            else:
+                recs.append(rule_based_resize_movement(cap, nouns[0], args.edit_type, rng))
+    else:
+        if args.backend == "llama":
+            model = _llama(args, params)
+            v = model.lm_cfg.vocab_size
+            tokenize = lambda s: [1 + (b % (v - 2)) for b in s.encode()][-1024:]  # noqa: E731
+            detok = lambda ids: bytes((max(0, i - 1) % 256)  # noqa: E731
+                                      for i in ids).decode("utf-8", "replace")
+            llm = LlamaBackend(model, tokenize, detok, batch_size=args.batch_size)
+        else:
+            llm = TemplateBackend()
+        gen = InstructionGenerator(llm=llm, seed=args.seed, self_check=not args.no_self_check,
+                                   n_shots=args.shots)
+        recs = gen.generate(args.edit_type, captions, batch_size=args.batch_size)
+
+    write_records(args.output, recs)
+    print(json.dumps({"captions": len(captions), "records": len(recs),
+                      "output": args.output}))
+    return 0
+
+
+def cmd_convert(args, params=None) -> int:
+    """An official torch checkpoint -> the zoo's `<slot>.safetensors`
+    (`weights/bootstrap.py`; no JAX, Flax or safetensors package)."""
+    from anyedit_tpu_torch.weights.bootstrap import REGISTRY, convert_checkpoint
+    if args.list:
+        for k, e in sorted(REGISTRY.items()):
+            print(f"{k:16s} ← {e.hint}")
+        return 0
+    if args.model is None or args.src is None:
+        print("convert needs --model and --src (or --list)", file=sys.stderr)
+        return 2
+    out = args.out or str(Path(args.weights_dir) / f"{args.model}.safetensors")
+    convert_checkpoint(args.model, args.src, out)
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_bench(args, params=None) -> int:
+    """`tools/bench_torch_ip2p.py`'s main (bench.py's workload on the
+    card), loaded by path from the repository root."""
+    import importlib.util
+
+    if args.device != "cuda":
+        print("bench runs on the card only (--device cuda)", file=sys.stderr)
+        return 2
+    path = Path(__file__).resolve().parents[1] / "tools" / "bench_torch_ip2p.py"
+    spec = importlib.util.spec_from_file_location("bench_torch_ip2p", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv, sys.argv = sys.argv, [str(path)]
+    try:
+        return mod.main()
+    finally:
+        sys.argv = argv
+
+
 def main(argv=None, params=None) -> int:
-    """`params`: Flax trees of the frozen towers by slot name (see the
-    module docstring)."""
+    """`params`: Flax trees by slot name (see the module docstring)."""
     p = argparse.ArgumentParser(prog="anyedit_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pr = sub.add_parser("run", help="run editing pipelines over a record stream "
+                                    "(images: PNG; the GPU machine has no Pillow)")
+    pr.add_argument("--instruction-json", required=True)
+    pr.add_argument("--image-root", required=True)
+    pr.add_argument("--edit-type", default=None)
+    pr.add_argument("--output", default="out")
+    pr.add_argument("--weights", default=None,
+                    help="dir of converted <slot>.safetensors checkpoints "
+                         "(`convert`) and tokenizer assets")
+    pr.add_argument("--require-weights", action="store_true",
+                    help="refuse to run any model slot without its converted "
+                         "<slot>.safetensors (no silent random init)")
+    pr.add_argument("--seed", type=int, default=0)
+    pr.add_argument("--profile-trace", default=None,
+                    help="write a torch.profiler trace here")
+    pr.add_argument("--tiny", action="store_true",
+                    help="tiny random-weight models (hermetic smoke runs)")
+    pr.add_argument("--ground-batch", type=int, default=8,
+                    help="device-batch N records' first grounding (0=off)")
+    pr.add_argument("--no-filters", action="store_true",
+                    help="skip pre/post gates (random-weight smoke runs)")
+    pr.add_argument("--int8", action="store_true",
+                    help="W8A8 int8 UNet fast mode for the IP2P editor (ops/quant.py)")
+    pr.add_argument("--lcm-steps", type=int, default=0,
+                    help="distilled few-step consistency editor for the IP2P slot "
+                         "(train/distill.py; loads unet_ip2p_lcm.safetensors when "
+                         "present). 0 = off")
+    _add_shard_args(pr)
+    pr.add_argument("--device", default="cuda")
+    pr.set_defaults(fn=cmd_run)
 
     pt = sub.add_parser("train", help="AnySD fine-tune from a success ledger")
     pt.add_argument("--ledger", required=True)
@@ -230,6 +516,61 @@ def main(argv=None, params=None) -> int:
     pd.add_argument("--tiny", action="store_true")
     pd.add_argument("--device", default="cuda")
     pd.set_defaults(fn=cmd_edit)
+
+    pc = sub.add_parser("convert", help="torch checkpoint -> zoo <slot>.safetensors")
+    pc.add_argument("--model", default=None)
+    pc.add_argument("--src", default=None)
+    pc.add_argument("--out", default=None)
+    pc.add_argument("--weights-dir", default="weights")
+    pc.add_argument("--list", action="store_true")
+    pc.add_argument("--device", default="cuda",
+                    help="unused: conversion reads and writes on the host")
+    pc.set_defaults(fn=cmd_convert)
+
+    pv = sub.add_parser("eval", help="score a run's edited pairs (CLIP/dirCLIP/L1/SSIM "
+                                     "+ post-filter pass-rate per edit type)")
+    pv.add_argument("--run-dir", required=True,
+                    help="a `run` output dir (ledger.jsonl + saved images)")
+    pv.add_argument("--image-root", default=None,
+                    help="original images (for records whose input is not synthesized)")
+    pv.add_argument("--output", default="eval.json")
+    pv.add_argument("--weights", default=None)
+    pv.add_argument("--require-weights", action="store_true")
+    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--tiny", action="store_true")
+    pv.add_argument("--device", default="cuda")
+    pv.set_defaults(fn=cmd_eval)
+
+    pe = sub.add_parser("export", help="ledger -> reference-format JSONs")
+    pe.add_argument("--ledger", required=True)
+    pe.add_argument("--output", required=True)
+    pe.add_argument("--start", type=int, default=0)
+    pe.add_argument("--end", type=int, default=None)
+    pe.add_argument("--device", default="cuda", help="unused: the export runs on the host")
+    pe.set_defaults(fn=cmd_export)
+
+    pg = sub.add_parser("generate", help="captions -> instruction records "
+                                         "(template or llama backend)")
+    pg.add_argument("--captions", required=True, help="text file, one caption per line")
+    pg.add_argument("--edit-type", required=True)
+    pg.add_argument("--output", required=True, help=".jsonl or .json path")
+    pg.add_argument("--backend", choices=("template", "llama"), default="template")
+    pg.add_argument("--weights", default=None, help="dir holding llama.safetensors")
+    pg.add_argument("--require-weights", action="store_true")
+    pg.add_argument("--tiny", action="store_true")
+    pg.add_argument("--int8", action="store_true", help="W8A8 llama decoder")
+    pg.add_argument("--batch-size", type=int, default=16)
+    pg.add_argument("--limit", type=int, default=0)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--no-self-check", action="store_true")
+    pg.add_argument("--shots", type=int, default=5,
+                    help="few-shot examples per prompt (5 = reference setting)")
+    pg.add_argument("--device", default="cuda")
+    pg.set_defaults(fn=cmd_generate)
+
+    pb = sub.add_parser("bench", help="throughput benchmark (tools/bench_torch_ip2p.py)")
+    pb.add_argument("--device", default="cuda")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args, params)

@@ -32,7 +32,14 @@ def _triangle(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 - x.abs(), min=0.0)
 
 
-_KERNELS = {"lanczos": _lanczos3, "bilinear": _triangle}
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel, a = -0.5 (JAX's "bicubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_KERNELS = {"lanczos": _lanczos3, "bilinear": _triangle, "bicubic": _keys_cubic}
 
 
 def _weight_mat(in_size: int, out_size: int, kernel, antialias: bool,

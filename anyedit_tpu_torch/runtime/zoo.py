@@ -186,6 +186,7 @@ from anyedit_tpu_torch.ops.resize import (
 from anyedit_tpu_torch.schedulers import make_noise_schedule
 from anyedit_tpu_torch.train.distill import DistillConfig, lcm_edit
 from anyedit_tpu_torch.weights import bridge
+from anyedit_tpu_torch.weights.files import read_safetensors
 from anyedit_tpu_torch.weights.init import seeded_init_
 
 
@@ -342,31 +343,41 @@ class ModelZoo:
     "sd3_vae", "clip_text_sd3", "clip_text_g", "t5", "flux", "flux_vae", "unet_refine",
     "sdxl_vae", "controlnet_canny", "controlnet_depth", "ip_proj", "ip_adapter",
     "depth", "hed", "seg", "unet_anydoor", "controlnet_anydoor", "dinov2_g",
-    "anydoor_proj", "vila" and "ocr"; a missing slot gets a seeded init (a
-    ControlNet's zero convs and hint projection at zero, as in the JAX zoo).
-    weights_dir: optional; the port reads only tokenizer assets from it
-    (`vocab.txt`, the CLIP merges, `spiece.model`, and `got_tokenizer.json`
-    or `qwen_vocab.json` + `qwen_merges.txt`), selected as the JAX zoo
-    selects them (`select_tokenizers`; without it, the hash tokenizers).
-    A dir holding a `*.msgpack` is refused: weights come through `params`,
-    so that no slot the JAX zoo would load is seeded here."""
+    "anydoor_proj", "vila" and "ocr".
+    weights_dir: optional; a slot loads the port module's state dict from
+    `weights_dir/<slot>.safetensors` (under the JAX zoo's `_wf` names, as
+    `python -m anyedit_tpu_torch convert` writes them; with `lcm_steps`,
+    the IP2P UNet from `unet_ip2p_lcm.safetensors` when it exists), and
+    the tokenizer assets (`vocab.txt`, the CLIP merges, `spiece.model`,
+    and `got_tokenizer.json` or `qwen_vocab.json` + `qwen_merges.txt`),
+    selected as the JAX zoo selects them (`select_tokenizers`; without it,
+    the hash tokenizers). A dir holding a `*.msgpack` is refused: those are
+    Flax trees, which the port does not read.
+    A slot with neither a tree nor a file gets a seeded init (a
+    ControlNet's zero convs and hint projection at zero, as in the JAX
+    zoo), unless `require_weights`, which needs a `weights_dir` and makes a
+    slot without its file raise FileNotFoundError. A slot given both as a
+    tree and as a file is refused."""
 
     def __init__(self, cfg: ZooConfig | None = None, device: str | torch.device = "cuda",
                  seed: int = 0, params: Optional[Mapping[str, Any]] = None,
                  weights_dir: str | Path | None = None,
-                 allow_fallback_tokenizers: bool = False):
+                 allow_fallback_tokenizers: bool = False, require_weights: bool = False):
         self.cfg = cfg or ZooConfig()
         self.device = torch.device(device)
         self.seed = seed
         self.params = dict(params or {})
         self.weights = Path(weights_dir) if weights_dir else None
+        self.require_weights = require_weights
+        if require_weights and self.weights is None:
+            raise ValueError("require_weights=True needs a weights_dir")
         if self.weights is not None:
             packed = sorted(p.name for p in self.weights.glob("*.msgpack"))
             if packed:
                 raise ValueError(
-                    f"weights_dir={self.weights} holds {packed}: the port reads only "
-                    "tokenizer assets from weights_dir; pass the parameter trees "
-                    "as params= (ModelZoo would otherwise seed those slots)")
+                    f"weights_dir={self.weights} holds {packed}: the port reads "
+                    "<slot>.safetensors, not Flax trees; convert the official "
+                    "checkpoints with `python -m anyedit_tpu_torch convert`")
         self._cache: dict[str, Any] = {}
         self._spiece: Any = False                 # not looked for yet
         self.tokenizer, self.clip_tokenizer = select_tokenizers(
@@ -382,11 +393,37 @@ class ModelZoo:
             self._cache[name] = build()
         return self._cache[name]
 
-    def _load(self, module: torch.nn.Module, slot: str, to_state_dict):
+    def _wf(self, slot: str) -> Optional[Path]:
+        """The slot's weight file in `weights_dir`, or None. With
+        `require_weights`, a slot with no file raises (no seeded init)."""
+        if self.weights is None:
+            return None
+        wf = self.weights / f"{slot}.safetensors"
+        if wf.exists():
+            return wf
+        if self.require_weights and slot not in self.params:
+            raise FileNotFoundError(
+                f"required weights missing: {wf}; convert the checkpoint first "
+                "(`python -m anyedit_tpu_torch convert`) or drop --require-weights")
+        return None
+
+    def _slot_state(self, slot: str, to_state_dict, wf: Optional[Path] = None):
+        """The slot's state dict: bridged from its Flax tree in `params`,
+        or read from its file (`wf`, else `_wf(slot)`); None: seed it."""
+        wf = wf or self._wf(slot)
         if slot in self.params:
-            module.load_state_dict(to_state_dict(self.params[slot]), strict=True)
-        else:
+            if wf is not None:
+                raise ValueError(f"slot {slot!r} is given both in params= and as {wf}")
+            return to_state_dict(self.params[slot])
+        return read_safetensors(wf) if wf is not None else None
+
+    def _load(self, module: torch.nn.Module, slot: str, to_state_dict,
+              wf: Optional[Path] = None):
+        sd = self._slot_state(slot, to_state_dict, wf)
+        if sd is None:
             seeded_init_(module, self.seed)
+        else:
+            module.load_state_dict(sd, strict=True)
         return module.eval().requires_grad_(False)
 
     # ---- tokenization ----------------------------------------------------
@@ -478,20 +515,21 @@ class ModelZoo:
         return self._get("sam", lambda: self._load(
             SAM(self.cfg.sam, device=self.device), "sam", bridge.sam_state_dict))
 
-    def _backbone(self, make: Callable, cfg, slot: str, to_state_dict, quant: bool):
+    def _backbone(self, make: Callable, cfg, slot: str, to_state_dict, quant: bool,
+                  wf: Optional[Path] = None):
         """The denoiser `make(cfg, device=...)` of a diffusion slot, bridged
-        from `params` or seeded. With `quant`, the W8A8 module from the
-        slot's float parameters: bridged from `params`, or the seeded init
+        from `params`, read from its file (`wf`, else `weights_dir`'s) or
+        seeded. With `quant`, the W8A8 module from the slot's float
+        parameters: bridged from `params`, read from the file, or the seeded init
         drawn on the device in fp32 (the float values the JAX package
         quantizes), quantized once, here. The W8A8 module is built on the
         meta device and takes the quantized tensors as they are, so the
         peak is the fp32 module plus the int8 weights (Flux: about 57 GB,
         not 91)."""
         if not quant:
-            return self._load(make(cfg, device=self.device), slot, to_state_dict)
-        if slot in self.params:
-            float_sd = to_state_dict(self.params[slot])
-        else:
+            return self._load(make(cfg, device=self.device), slot, to_state_dict, wf)
+        float_sd = self._slot_state(slot, to_state_dict, wf)
+        if float_sd is None:
             fcfg = dataclasses.replace(cfg, dtype=torch.float32)
             float_sd = seeded_init_(make(fcfg, device=self.device), self.seed).state_dict()
         module = make(dataclasses.replace(cfg, quant=True), device="meta")
@@ -501,11 +539,12 @@ class ModelZoo:
                                assign=True)
         return module.eval().requires_grad_(False)
 
-    def _unet(self, slot: str, ucfg: UNetConfig, quant: bool) -> UNet2DCondition:
+    def _unet(self, slot: str, ucfg: UNetConfig, quant: bool,
+              wf: Optional[Path] = None) -> UNet2DCondition:
         return self._backbone(UNet2DCondition, ucfg, slot,
                               lambda t: bridge.unet_state_dict(t, len(ucfg.block_channels),
                                                                ucfg.use_linear_projection),
-                              quant)
+                              quant, wf)
 
     def _mmdit(self) -> MMDiT:
         """UltraEdit's MMDiT (slot "mmdit_ultraedit"); W8A8 with `quant_diffusion`."""
@@ -526,11 +565,28 @@ class ModelZoo:
         return self._get("sd_core", lambda: (
             self._unet("unet_sd", c.sd_unet, False), make_noise_schedule(device=self.device)))
 
+    def _lcm_wf(self) -> Optional[Path]:
+        """With `lcm_steps`, the distilled student's file
+        `unet_ip2p_lcm.safetensors` when it exists (it takes the slot's
+        place); under `require_weights` its absence raises, since the
+        teacher's weights would run through the consistency sampler."""
+        if self.cfg.lcm_steps <= 0 or self.weights is None or "unet_ip2p" in self.params:
+            return None
+        lwf = self.weights / "unet_ip2p_lcm.safetensors"
+        if lwf.exists():
+            return lwf
+        if self.require_weights:
+            raise FileNotFoundError(
+                f"lcm_steps={self.cfg.lcm_steps} with require_weights needs the "
+                f"distilled student {lwf}; distill it first or drop --lcm-steps")
+        return None
+
     def _ip2p_core(self):
         """(unet, noise_schedule)."""
         c = self.cfg
         return self._get("ip2p_core", lambda: (
-            self._unet("unet_ip2p", c.ip2p_unet, c.quant_ip2p or c.quant_diffusion),
+            self._unet("unet_ip2p", c.ip2p_unet, c.quant_ip2p or c.quant_diffusion,
+                       self._lcm_wf()),
             make_noise_schedule(device=self.device)))
 
     def _inpaint_core(self):
@@ -887,10 +943,19 @@ class ModelZoo:
                            "'sdxl_inpaint', 'canny_consistency', 'sdxl_material', 'canny', "
                            "'depth', 'hed', 'seg', 'composition', 'anydoor', 'dino')")
 
-    def toolbox(self, slots: Sequence[str] = ()) -> Toolbox:
-        """A Toolbox with `ground`, `inpaint` (LaMa) and `ip2p` (with its
-        `.batch`), and the named slots, as the JAX zoo builds it."""
-        tb = Toolbox(ground=self.grounder(), inpaint=self.inpainter(), ip2p=self.ip2p())
+    def toolbox(self, with_diffusion: bool = True, with_anydoor: bool = False,
+                with_implicit: bool = False, slots: Sequence[str] = ()) -> Toolbox:
+        """A Toolbox with `ground` and `inpaint` (LaMa), `ip2p` (with its
+        `.batch`) only `with_diffusion` (the IP2P UNet, VAE and CLIP text
+        tower are built for it), AnyDoor `with_anydoor`, the P2P pair
+        `with_implicit`, and the named slots, as the JAX zoo builds it."""
+        tb = Toolbox(ground=self.grounder(), inpaint=self.inpainter())
+        if with_diffusion:
+            tb.ip2p = self.ip2p()
+        if with_anydoor:
+            tb.extra["anydoor"] = self.anydoor()
+        if with_implicit:
+            tb.extra["p2p_pair"] = self.p2p_pair()
         for s in dict.fromkeys(slots):
             self.install(tb, s)
         return tb
@@ -1671,6 +1736,33 @@ class ModelZoo:
                 return (cls / torch.clamp(cls.norm(dim=-1, keepdim=True), min=1e-8)).cpu().numpy()
             return embed
         return self._get("dino_embed", build)
+
+
+# edit_type -> the slots it needs beyond ground / inpaint / ip2p; `run` takes
+# their union over the record stream, so only the models a run touches are
+# built (the JAX zoo's table, key for key)
+SLOTS_FOR_EDIT_TYPE: dict[str, tuple[str, ...]] = {
+    "add": (), "remove": (), "counting": (),
+    "replace": ("sd_inpaint",),
+    "background_change": ("sd_inpaint",),
+    "color_alter": (), "tone_transfer": (),
+    "appearance_alter": ("ultraedit",),
+    "material_alter": ("ultraedit",),
+    "action_change": ("masactrl",),
+    "resize": (), "movement": (), "relation": (), "outpainting": (),
+    "textual_change": ("flux_pair",),
+    "implicit_change": ("p2p_pair", "sdxl_inpaint", "sdxl_img2img",
+                        "canny_consistency", "clip"),
+    "style_change": (),
+    "rotation_change": (),
+    "composition": ("composition",),
+    "visual_bbox": (), "visual_sketch": ("canny",),
+    "visual_scribble": ("hed",), "visual_depth": ("depth",),
+    "visual_segment": ("seg",),
+    "visual_reference": ("anydoor",),
+    "visual_material_transfer": ("sdxl_material", "depth"),
+    "material_transfer": ("sdxl_material", "depth"),
+}
 
 
 @contextlib.contextmanager

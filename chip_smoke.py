@@ -287,6 +287,27 @@ Then training (slice 6a), on models of their own:
      The kernels line gains a row at each such shape, K1's and K2's
      backward rows, and on the K1 and K2 rows `launches_train*`,
      `launches_distill_step`, `launches_lcm_request`.
+Then the factory's command line (slice 7a), each run on a zoo of its own:
+ 28. cli: `cli.main(["run", ...])` at full width (`ZooConfig()`, 512
+     canvas, seeded on the card, `--ground-batch 8 --no-filters`) over
+     seeded 480x640 PNGs: tone_transfer, color_alter, remove, visual_depth.
+     Every record gets a status, tone_transfer succeeds with its edited PNG
+     on disk, K1 and K2 launch (`launches_cli` on the K1 and K2 rows, a row
+     at each shape no earlier row holds), seconds a record over the
+     executor's run, and its busy share: the device events of one more run
+     of the same records under `torch.profiler` (device events only) over
+     the unprofiled run's seconds; a run of the
+     remove record alone builds no UNet; `eval` scores the run directory
+     and `export` writes its three reference JSONs. Then the checkpoint
+     round trip: the seeded state dicts of every slot a tone_transfer run
+     touches, written under the official names (SAM in the HF mirror's
+     `vision_encoder.*` layout, LaMa under `generator.`, the UNet as two
+     shards with an index, the aesthetic MLP as a torch `.pth`), each
+     through `convert`, then `run --weights --require-weights`: the edited
+     PNG's bytes equal the run with the same tensors seeded in memory (both
+     with the same tokenizer assets; the first timed, the second profiled:
+     the tone_transfer record's seconds and busy share alone); with one
+     slot file gone the run raises FileNotFoundError.
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -3810,6 +3831,317 @@ def distill_phase(dev):
             "lcm_s": lcm_s, "lcm_launches": launches, "lcm_k1": dict(lcm_k1),
             "lcm_k2": dict(lcm_k2)}
 
+# ---- slice 7a: the factory's command line ---------------------------------------
+
+CLI_RECORDS = [
+    {"edit": "make it look like a warm sunset", "input": "a red square on a blue wall",
+     "output": "a red square on a blue wall at sunset", "edit_type": "tone_transfer",
+     "image_file": "tone.png"},
+    {"edit": "turn the square green", "edited object": "square",
+     "input": "a red square on a blue wall", "output": "a green square on a blue wall",
+     "edit_type": "color_alter", "image_file": "color.png"},
+    {"edit": "remove the square", "edited object": "square",
+     "input": "a red square on a blue wall", "output": "a blue wall",
+     "edit_type": "remove", "image_file": "remove.png"},
+    {"edit": "a red square on a blue wall", "input": "a red square on a blue wall",
+     "output": "a red square on a blue wall", "edit_type": "visual_depth",
+     "image_file": "depth.png"},
+]
+# the slots a tone_transfer run builds (ground, inpaint, ip2p, the gate
+# scorers), with the layout each is written in for the round trip
+CLI_PATH = ("cli run: tone_transfer, color_alter, remove and visual_depth records in one chunk "
+            "(ground batch 8, the gates off)")
+CLI_ROUND_TRIP = ("gdino", "sam", "lama", "unet_ip2p", "vae", "clip_text", "clip_vision",
+                  "clip_text_proj", "aesthetic")
+
+
+def cli_tokenizer_assets(d: Path) -> None:
+    """A small WordPiece `vocab.txt` and CLIP merges (`clip_merges.txt`): a
+    weights dir needs tokenizer assets, as in the JAX zoo."""
+    d.mkdir(parents=True, exist_ok=True)
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ","]
+    words += [chr(c) for c in range(97, 123)] + ["##" + chr(c) for c in range(97, 123)]
+    words += ["a", "red", "square", "on", "blue", "wall", "green", "the", "make", "it"]
+    (d / "vocab.txt").write_text("\n".join(words) + "\n")
+    merges = ["s q", "r e", "e d</w>", "a r", "sq u", "squ ar", "squar e</w>", "b l", "bl u",
+              "blu e</w>", "w a", "wa l", "wal l</w>"]
+    (d / "clip_merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+
+
+def cli_images(root: Path) -> None:
+    """Seeded 480x640 PNGs: a red square on a blue wall with noise."""
+    from anyedit_tpu_torch.core.png import write_png
+    rng = np.random.default_rng(71)
+    root.mkdir(parents=True, exist_ok=True)
+    for rec in CLI_RECORDS:
+        img = np.zeros((480, 640, 3), np.float32)
+        img[...] = (40, 70, 190)
+        img[140:340, 220:420] = (200, 30, 30)
+        img += rng.normal(0, 12, img.shape)
+        write_png(root / rec["image_file"], np.clip(img, 0, 255).astype(np.uint8))
+
+
+def cli_main(argv) -> tuple[int, str]:
+    """`cli.main(argv)` with its standard output captured: (code, output)."""
+    import io
+
+    from anyedit_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli_write_records(path: Path, recs) -> Path:
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    return path
+
+
+@contextlib.contextmanager
+def executor_timed(timing: dict, profiled: bool = False):
+    """`FactoryExecutor.run` timed on the host clock around a device
+    synchronise; `profiled`: under `torch.profiler` recording the device's
+    events only, with their seconds as "busy_s". As `timed_rows` takes them,
+    the time comes from a run without the profiler (whose per-launch cost
+    lengthens a host-bound run) and the busy seconds from another run of
+    the same work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anyedit_tpu_torch.runtime.executor import FactoryExecutor
+
+    real = FactoryExecutor.run
+
+    def run(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) if profiled \
+                else contextlib.nullcontext() as prof:
+            out = real(self, *args, **kwargs)
+            torch.cuda.synchronize()
+        timing["run_s"] = time.perf_counter() - t0
+        if profiled:
+            us = 0.0
+            for e in prof.key_averages():
+                t = getattr(e, "self_device_time_total", None)
+                t = e.self_cuda_time_total if t is None else t
+                if e.device_type == DeviceType.CUDA and t > 0:
+                    us += t
+            timing["busy_s"] = us / 1e6
+        return out
+    FactoryExecutor.run = run
+    try:
+        yield timing
+    finally:
+        FactoryExecutor.run = real
+
+
+@contextlib.contextmanager
+def unets_built(log: list):
+    """Every UNet2DCondition constructed inside the block (its config)."""
+    from anyedit_tpu_torch.models.unet_sd import UNet2DCondition
+    real = UNet2DCondition.__init__
+
+    def init(self, cfg, *args, **kwargs):
+        log.append(cfg)
+        real(self, cfg, *args, **kwargs)
+    UNet2DCondition.__init__ = init
+    try:
+        yield log
+    finally:
+        UNet2DCondition.__init__ = real
+
+
+def cli_official_sources(dev, src: Path) -> dict:
+    """The seeded state dicts of CLI_ROUND_TRIP's slots (`ModelZoo()` on
+    the card, seed 0: the tensors a seeded `run` draws), written under the
+    official names: {slot: path}."""
+    import torch
+
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+    from anyedit_tpu_torch.weights import bootstrap
+    from anyedit_tpu_torch.weights.files import write_safetensors
+
+    zoo = ModelZoo(ZooConfig(), dev, seed=0)
+    c = zoo.cfg
+    get = {"gdino": zoo._gdino, "sam": zoo._sam, "lama": zoo._lama,
+           "unet_ip2p": lambda: zoo._ip2p_core()[0], "vae": zoo._vae,
+           "clip_text": lambda: zoo._text_model("clip_text", c.text),
+           "clip_vision": lambda: zoo._vision("clip_vision", c.vision),
+           "clip_text_proj": zoo._text_proj, "aesthetic": zoo._aesthetic_mlp}
+    paths = {}
+    src.mkdir(parents=True, exist_ok=True)
+    for name in CLI_ROUND_TRIP:
+        m = get[name]()
+        sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        hint = ({"vision_encoder.x"} if name == "sam"          # the HF mirror's layout
+                else {"generator." + next(iter(sd))} if name == "lama" else set(sd))
+        off = bootstrap.official_state(bootstrap.plan_for(name, m, hint), sd)
+        if name == "aesthetic":
+            paths[name] = src / "sac+logos+ava1-l14-linearMSE.pth"
+            torch.save(off, paths[name])
+        elif name == "unet_ip2p":
+            paths[name] = d = src / "unet"
+            keys = list(off)
+            shards = {f"diffusion_pytorch_model-0000{i + 1}-of-00002.safetensors": part
+                      for i, part in enumerate((keys[:len(keys) // 2], keys[len(keys) // 2:]))}
+            for fname, part in shards.items():
+                write_safetensors(d / fname, {k: off[k] for k in part})
+            (d / "diffusion_pytorch_model.safetensors.index.json").write_text(json.dumps(
+                {"weight_map": {k: f for f, part in shards.items() for k in part}}))
+        else:
+            paths[name] = src / f"{name}.safetensors"
+            write_safetensors(paths[name], off)
+    del zoo, get
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def cli_phase(dev):
+    """Phase 28 (see the module docstring). Returns ({kernel: launches} of
+    the full-width run, {K1 shape: launches}, the K2 tally, numbers)."""
+    import torch
+
+    from anyedit_tpu_torch.core.png import read_png
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    imgs, out = root / "img", root / "run"
+    cli_images(imgs)
+    recs = cli_write_records(root / "records.jsonl", CLI_RECORDS)
+    nums, timing, built = {}, {}, []
+    flash_nomax.launches = group_norm.launches = 0
+    with k1_tally() as k1t, k2_tally() as k2t, executor_timed(timing), unets_built(built):
+        t0 = time.perf_counter()
+        rc, text = cli_main(["run", "--instruction-json", str(recs), "--image-root", str(imgs),
+                             "--output", str(out), "--ground-batch", "8", "--no-filters",
+                             "--device", "cuda"])
+        nums["command_s"] = time.perf_counter() - t0
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    require(rc == 0, "run exits 0")
+    report = json.loads(text)
+    ledger = [json.loads(x) for x in (out / "ledger.jsonl").read_text().splitlines()]
+    status = {e["record"]["edit_type"]: e["status"] for e in ledger}
+    print(f"cli run: statuses {status}; report counts {report['counts']}; launches {launches}; "
+          f"UNets built {len(built)}", flush=True)
+    require(set(status) == {r["edit_type"] for r in CLI_RECORDS}
+            and set(status.values()) <= {"success", "failure", "filtered"},
+            "every record of the run has a status in the ledger")
+    tone = next(e for e in ledger if e["record"]["edit_type"] == "tone_transfer")
+    require(tone["status"] == "success", "the tone_transfer record succeeds with the gates off")
+    edited = read_png(tone["payload"]["edited_file"])
+    require(edited.shape == (480, 640, 3), "the edited PNG is on disk at the input's size")
+    require(launches["flash_nomax"] > 0 and launches["group_norm"] > 0,
+            "the run launched K1 and K2")
+    require(len(built) == 1, "the run built the IP2P UNet once")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same records again, under the profiler: the device's busy seconds
+    profiled = {}
+    with executor_timed(profiled, profiled=True):
+        rc, _ = cli_main(["run", "--instruction-json", str(recs), "--image-root", str(imgs),
+                          "--output", str(root / "run_profiled"), "--ground-batch", "8",
+                          "--no-filters", "--device", "cuda"])
+    require(rc == 0, "the profiled run exits 0")
+    n = len(CLI_RECORDS)
+    nums.update(run_s=timing["run_s"], busy_s=profiled["busy_s"],
+                profiled_run_s=profiled["run_s"], s_per_record=timing["run_s"] / n,
+                busy_share=profiled["busy_s"] / timing["run_s"],
+                stages_ms={k: v["mean_ms"] for k, v in report["stages"].items()})
+    print(f"cli run: executor {timing['run_s']:.3f} s for {n} records "
+          f"({nums['s_per_record']:.3f} s a record), device busy {profiled['busy_s']:.3f} s "
+          f"({nums['busy_share'] * 100:.1f} %; the profiled run took {profiled['run_s']:.3f} s); "
+          f"the command {nums['command_s']:.3f} s with its model builds; stage means (ms, "
+          f"host) {nums['stages_ms']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the repair: a run of only remove records builds no UNet
+    built.clear()
+    only_remove = cli_write_records(root / "remove.jsonl",
+                                    [r for r in CLI_RECORDS if r["edit_type"] == "remove"])
+    with unets_built(built):
+        rc, _ = cli_main(["run", "--instruction-json", str(only_remove), "--image-root",
+                          str(imgs), "--output", str(root / "run_remove"), "--no-filters",
+                          "--device", "cuda"])
+    require(rc == 0 and not built, "a run of only remove records builds no UNet")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc, text = cli_main(["eval", "--run-dir", str(out), "--image-root", str(imgs),
+                         "--output", str(root / "eval.json"), "--device", "cuda"])
+    nums["eval_s"] = time.perf_counter() - t0
+    ev = json.loads((root / "eval.json").read_text())
+    n_ok = sum(e["status"] == "success" for e in ledger)
+    pair = ev["pairs"][0]
+    require(rc == 0 and ev["overall"]["count"] == n_ok and 0 <= pair["l1"] <= 1
+            and -1 <= pair["ssim"] <= 1 and all(math.isfinite(pair[k]) for k in
+                                                ("clip_out", "dir_clip", "dino_sim")),
+            "eval scores every success with finite metrics")
+    rc, _ = cli_main(["export", "--ledger", str(out / "ledger.jsonl"), "--output",
+                      str(root / "export")])
+    exported = sorted(p.name for p in (root / "export").iterdir())
+    succ = json.loads((root / "export" / f"edit_success_0_{n}.json").read_text())
+    require(rc == 0 and len(exported) == 3 and len(succ) == n_ok,
+            "export writes the three reference JSONs")
+    print(f"cli eval {nums['eval_s']:.3f} s (with its CLIP-L and DINOv2-G builds): overall "
+          f"{ev['overall']}; export {exported}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint round trip
+    tok, wdir = root / "tok", root / "weights"
+    cli_tokenizer_assets(tok)
+    tone_only = cli_write_records(root / "tone.jsonl", CLI_RECORDS[:1])
+    base = ["run", "--instruction-json", str(tone_only), "--image-root", str(imgs),
+            "--no-filters", "--device", "cuda"]
+    warm, warm_b = {}, {}
+    with executor_timed(warm):
+        rc, _ = cli_main(base + ["--output", str(root / "rt_memory"), "--weights", str(tok)])
+    require(rc == 0, "the seeded run with tokenizer assets exits 0")
+    nums["tone_warm_s"] = warm["run_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sources = cli_official_sources(dev, root / "official")
+    shutil.copytree(tok, wdir)
+    for name, path in sources.items():
+        rc, _ = cli_main(["convert", "--model", name, "--src", str(path), "--weights-dir",
+                          str(wdir)])
+        require(rc == 0 and (wdir / f"{name}.safetensors").exists(), f"convert {name}")
+    nums["write_convert_s"] = time.perf_counter() - t0
+    with executor_timed(warm_b, profiled=True):      # the same record: its busy seconds
+        rc, _ = cli_main(base + ["--output", str(root / "rt_files"), "--weights", str(wdir),
+                                 "--require-weights"])
+    nums["tone_warm_busy_share"] = warm_b["busy_s"] / warm["run_s"]
+    print(f"cli run of the tone_transfer record alone: executor {warm['run_s']:.3f} s, device "
+          f"busy {warm_b['busy_s']:.3f} s ({nums['tone_warm_busy_share'] * 100:.1f} %; the "
+          f"profiled run took {warm_b['run_s']:.3f} s)", flush=True)
+    a = (root / "rt_memory" / "edited_img" / "tone.png").read_bytes()
+    b = (root / "rt_files" / "edited_img" / "tone.png").read_bytes()
+    require(rc == 0 and a == b, "the converted weights give the seeded run's PNG bytes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    (wdir / "gdino.safetensors").rename(root / "gdino.safetensors.away")
+    try:
+        cli_main(base + ["--output", str(root / "rt_missing"), "--weights", str(wdir),
+                         "--require-weights"])
+        raised = False
+    except FileNotFoundError:
+        raised = True
+    require(raised, "a missing slot file raises under --require-weights")
+    print(f"cli round trip: {len(sources)} slots written under the official names and "
+          f"converted in {nums['write_convert_s']:.2f} s; the edited PNG equal byte for byte "
+          f"({len(a)} bytes); a missing gdino.safetensors raises", flush=True)
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(k1t), dict(k2t), nums
+
 
 def main() -> int:
     import torch
@@ -4081,6 +4413,18 @@ def main() -> int:
         held |= {key for *_, key in visual_rows}
         train_k2_rows, train_seen = new_k2_rows(dev, k2_paths, held)
 
+    # the factory's command line (slice 7a), on zoos of its own
+    with phase("cli"):
+        cli_launches, cli_k1, cli_k2, cx = cli_phase(dev)
+        print(f"{card_line}: run over {len(CLI_RECORDS)} records {cx['s_per_record']:.3f} s a "
+              f"record (busy {cx['busy_share'] * 100:.1f} %), the tone_transfer record alone "
+              f"{cx['tone_warm_s']:.3f} s (busy "
+              f"{cx['tone_warm_busy_share'] * 100:.1f} %), eval {cx['eval_s']:.3f} s", flush=True)
+        cli_k1_rows = new_k1_rows(dev, {"cli": cli_k1}, set(K1_SHAPES)
+                                  | {s for s, _ in SLICE_K1} | {s for *_, s in train_k1_rows})
+        held |= {key for *_, key in train_k2_rows}
+        cli_k2_rows, cli_seen = new_k2_rows(dev, {"cli": cli_k2}, held)
+
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches,
@@ -4207,6 +4551,19 @@ def main() -> int:
         row["launches_distill_step"] = dx["step_launches"][-1][
             0 if row["name"] == "flash_nomax" else 1]
         row["launches_lcm_request"] = dx["lcm_launches"][row["name"]]
+    for name, new_rows in (("flash_nomax", cli_k1_rows), ("group_norm", cli_k2_rows)):
+        for tag, r, path, per_path, key in new_rows:
+            row = entry(name, *sources[name], per_path[path], [(tag, r)])
+            row["path"] = CLI_PATH
+            kernels.append(row)
+            (k2_by_key if name == "group_norm" else k1_by_shape)[key] = row
+    for key, per_path in cli_seen.items():
+        k2_by_key[key].update({f"launches_{p}": n for p, n in per_path.items()})
+    for shape, n in cli_k1.items():
+        if shape in k1_by_shape:
+            k1_by_shape[shape]["launches_cli"] = n
+    for row in kernels[:2]:
+        row["launches_cli"] = cli_launches[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
