@@ -6,25 +6,30 @@
             the post-filter pass rate per edit type)
   export    ledger -> reference-format result JSONs
   generate  captions -> instruction records (template or llama backend)
-  convert   an official torch checkpoint -> the zoo's <slot>.safetensors
+  convert   an official torch checkpoint -> the zoo's <slot>.safetensors;
+            --plan prints the fetch-and-convert script for every registry
+            name, --verify holds the source's HF module against the port's
+            (where `transformers` is installed)
   bench     throughput benchmark (`tools/bench_torch_ip2p.py`)
   train     AnySD Stage-II fine-tune from a factory success ledger
   edit      edit one image with a trained AnySD adapter checkpoint
+  distill   LCM-distill the IP2P editor into the few-step student that
+            `run --lcm-steps` serves, with teacher / student eval run dirs
 
 The flags and defaults are the JAX commands', plus `--device` (default
 "cuda": the card; "cpu" where the caller asks for it; without CUDA,
 "cuda" raises). A weights directory (`run --weights`, `eval --weights`,
-`generate --weights`) holds `<slot>.safetensors` files as `convert` writes
-them, under the JAX zoo's slot names, and the tokenizer assets; Flax
-`.msgpack` trees are refused. `train` / `edit` read tokenizer assets only
-from `--weights-dir`; the frozen towers' Flax trees come through
-`main(argv, params=...)` ("vae", "clip_text", "clip_vision", "unet_ip2p").
-`run` and `generate` take Flax trees there too (the zoo's slot names, and
-"llama"), which the tests use. Images are read with `core/image.py::
-load_rgb`, which decodes PNG without Pillow; the GPU machine has no
-Pillow, so inputs there must be PNG. The JAX mesh (dp / tp / ep sharding)
-has no counterpart: one process runs on one device. In `train`, step s
-draws its timesteps, noise and dropout from `torch.Generator` seeded with
+`generate --weights`, `train` / `edit` / `distill --weights-dir`) holds
+`<slot>.safetensors` files as `convert` writes them, under the JAX zoo's
+slot names, and the tokenizer assets; Flax `.msgpack` trees are refused.
+`main(argv, params=...)` takes Flax trees by slot name instead ("vae",
+"clip_text", "clip_vision", "unet_ip2p" for `train` / `edit` / `distill`,
+the zoo's slot names and "llama" for `run` / `generate`), which the tests
+use; a slot given both ways is refused. Images are read with
+`core/image.py::load_rgb`, which decodes PNG without Pillow; the GPU
+machine has no Pillow, so inputs there must be PNG. The JAX mesh (dp / tp
+/ ep sharding) has no counterpart: one process runs on one device. In
+`train` and `distill`, step s draws from `torch.Generator` seeded with
 (seed << 32) + s, so a resumed run draws what an uninterrupted one would.
 """
 
@@ -128,7 +133,8 @@ def cmd_train(args, params=None) -> int:
                 "image_embed": vision(imagenet_normalize(px))[1],
                 "task_id": torch.from_numpy(pixel["task_id"]).long().to(dev)}
 
-    unet, adapter, opt_state = trainer.init(args.seed, frozen.unet_tree)
+    unet, adapter, opt_state = trainer.init(args.seed, frozen.unet_tree,
+                                             unet_state=frozen.unet_state)
     ckpt = TrainCheckpointer(args.checkpoint_dir, keep=args.keep_checkpoints,
                              save_interval_steps=args.checkpoint_every)
     start_step = 0
@@ -191,6 +197,211 @@ def cmd_train(args, params=None) -> int:
                       "examples": len(examples),
                       "mixture_types": sorted(sampler.buckets)}))
     return 0
+
+
+def eval_draws(seed: int, j: int, shape, lcm_steps: int, device):
+    """`distill`'s eval draws for held-out pair j: the start latents x_T
+    that the teacher and the student share, and the student's
+    lcm_steps - 1 re-noise draws, in that order from `torch.Generator`
+    seeded with ((seed + 1) << 32) + j. (The JAX command draws x_T from
+    fold_in(key(seed + 1), j) and the student's from fold_in(key,
+    10_000 + j); torch draws other numbers, so a test hands those in here.)"""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(((seed + 1) << 32) + j)
+    x_T = torch.randn(shape, generator=gen, device=device)
+    return x_T, [torch.randn(shape, generator=gen, device=device)
+                 for _ in range(lcm_steps - 1)]
+
+
+def cmd_distill(args, params=None) -> int:
+    """LCM guidance distillation of the IP2P editor into the few-step
+    student that `run --lcm-steps` serves (`unet_ip2p_lcm.safetensors`,
+    the EMA target's fp32 masters as the port UNet's state dict).
+
+    Data: (orig, edited, instruction) pairs of a factory success ledger
+    through the trainer's mixture pipeline; the first min(eval_count,
+    len - 1) examples are held out. The VAE means (x scaling factor), the
+    instruction's and the empty prompt's CLIP text are encoded without
+    grad; step s draws its grid indices and noise from `torch.Generator`
+    seeded with (seed << 32) + s, so a resumed run draws what an
+    uninterrupted one would. Checkpoints (the student's and the EMA's fp32
+    masters and the optimizer state) rotate and resume as `train`'s. With
+    `--eval-count N` it also writes <checkpoint-dir>/eval_teacher and
+    eval_student: the held-out pairs edited by the teacher at
+    --ddim-steps and by the student at --lcm-steps from the same x_T
+    (`eval_draws`), ready for `eval`, and prints the L1 readout."""
+    import dataclasses
+
+    import torch
+
+    from anyedit_tpu_torch.models.unet_sd import UNet2DCondition
+    from anyedit_tpu_torch.train.checkpoint import TrainCheckpointer
+    from anyedit_tpu_torch.train.data import (
+        MixtureSampler, examples_from_ledger, pixel_batches,
+    )
+    from anyedit_tpu_torch.train.distill import DistillConfig, LCMDistiller
+    from anyedit_tpu_torch.train.frozen import load_frozen_encoders
+    from anyedit_tpu_torch.weights import bridge
+    from anyedit_tpu_torch.weights.files import write_safetensors
+    from anyedit_tpu_torch.weights.init import seeded_init_
+
+    anysd_cfg, text_cfg, vis_cfg, vae_cfg = _anysd_configs(args.tiny)
+    ucfg = anysd_cfg.unet
+    dcfg = DistillConfig(unet=ucfg, num_ddim_steps=args.ddim_steps, skip=args.skip,
+                         guidance_scale=args.guidance,
+                         image_guidance_scale=args.image_guidance,
+                         ema_decay=args.ema_decay, learning_rate=args.lr)
+    dev = torch.device(args.device)
+    res = args.resolution
+    frozen = load_frozen_encoders(
+        vae_cfg, text_cfg, vis_cfg, params=params, weights_dir=args.weights_dir,
+        require=args.require_weights, seed=args.seed, device=dev,
+        allow_fallback_tokenizers=args.tiny)
+    if frozen.unet_tree is not None:
+        teacher_sd = bridge.unet_state_dict(frozen.unet_tree, len(ucfg.block_channels),
+                                            ucfg.use_linear_projection)
+    elif frozen.unet_state is not None:
+        teacher_sd = frozen.unet_state            # the converted IP2P checkpoint
+    else:
+        # no teacher given (--require-weights raised above): seeded in fp32,
+        # as the zoo seeds its slots
+        fp32 = dataclasses.replace(ucfg, dtype=torch.float32)
+        teacher_sd = seeded_init_(UNet2DCondition(fp32, device=dev), args.seed).state_dict()
+    dist = LCMDistiller(dcfg, device=dev)
+    teacher, student, ema, opt_state = dist.init(teacher_sd)
+    del teacher_sd
+    sf = vae_cfg.scaling_factor
+    uncond_ids = torch.from_numpy(frozen.tokenize("")).to(dev)
+
+    @torch.no_grad()
+    def encode(pixel):
+        hidden = frozen.text(torch.from_numpy(pixel["text_ids"]).to(dev))[0]
+        u_hidden = frozen.text(uncond_ids)[0]
+        return {"edited_latents":
+                frozen.vae.encode(torch.from_numpy(pixel["edited_px"]).to(dev))[0] * sf,
+                "orig_latents": frozen.vae.encode(torch.from_numpy(pixel["orig_px"]).to(dev))[0] * sf,
+                "text_emb": hidden, "uncond_emb": u_hidden.expand_as(hidden)}
+
+    ckpt = TrainCheckpointer(args.checkpoint_dir, keep=args.keep_checkpoints,
+                             save_interval_steps=args.checkpoint_every)
+    start_step = 0
+    if args.resume:
+        step0, masters, op = ckpt.restore_latest(map_location=dev)
+        if step0 is not None:
+            student.masters, ema.masters = masters["student"], masters["ema"]
+            student.sync_()
+            ema.sync_()
+            start_step, opt_state = step0, op
+            print(f"resumed from step {start_step}")
+
+    examples = examples_from_ledger(args.ledger, args.image_root)
+    if not examples:
+        print("no trainable success records in ledger", file=sys.stderr)
+        return 1
+    # hold out the eval set from training when there are examples to spare
+    n_eval = min(args.eval_count, max(0, len(examples) - 1))
+    train_ex = examples[n_eval:] if len(examples) > n_eval else examples
+    sampler = MixtureSampler(train_ex, seed=args.seed)
+
+    losses = []
+    for i, pixel in enumerate(pixel_batches(sampler, args.batch_size, res,
+                                            args.steps - start_step, frozen.tokenize),
+                              start=start_step):
+        batch = encode(pixel)
+        gen = torch.Generator(device=dev).manual_seed((args.seed << 32) + i)
+        draws = dist.draw(gen, batch)
+        student, ema, opt_state, loss = dist.distill_step(student, ema, opt_state, teacher,
+                                                          batch, draws)
+        losses.append(float(loss))
+        if (i + 1) % args.log_every == 0:
+            print(json.dumps({"step": i + 1, "loss": losses[-1]}))
+        ckpt.save(i + 1, {"student": student.masters, "ema": ema.masters}, opt_state)
+    ckpt.wait()
+    ckpt.close()
+
+    out = Path(args.out or (Path(args.weights_dir or args.checkpoint_dir)
+                            / "unet_ip2p_lcm.safetensors"))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    write_safetensors(out, ema.masters)
+
+    report = {"final_step": args.steps, "student_checkpoint": str(out),
+              "mean_loss": float(np.mean(losses)) if losses else None,
+              "examples": len(train_ex)}
+    if n_eval > 0:
+        report["quality"] = _distill_eval(args, dcfg, dist, teacher, ema, frozen,
+                                          examples[:n_eval], res)
+    print(json.dumps(report, indent=1))
+    return 0
+
+
+def _distill_eval(args, dcfg, dist, teacher, ema, frozen, eval_ex, res) -> dict:
+    """Teacher-vs-student readout on the held-out ledger pairs: both
+    editors start from the same x_T (the consistency function approximates
+    the teacher ODE's endpoint map), the teacher's 3-way-CFG DDIM at
+    --ddim-steps (`diffusion/ip2p.py::ip2p_edit`), the student's
+    `lcm_edit` at --lcm-steps. Writes eval_teacher/ and eval_student/ (PNGs
+    through `core/png.py`, a `RunLedger` each) and returns the L1 summary."""
+    import torch
+
+    from anyedit_tpu_torch.core.ledger import RunLedger
+    from anyedit_tpu_torch.core.png import write_png
+    from anyedit_tpu_torch.diffusion.ip2p import ip2p_edit
+    from anyedit_tpu_torch.ops.resize import denormalize_to_u8
+    from anyedit_tpu_torch.train.data import _load_resized
+    from anyedit_tpu_torch.train.distill import lcm_edit
+
+    dev = dist.device
+    vae, text = frozen.vae, frozen.text
+    sf = vae.cfg.scaling_factor
+    uncond_ids = torch.from_numpy(frozen.tokenize("")).to(dev)
+    dirs = {}
+    for name in ("eval_teacher", "eval_student"):
+        d = Path(args.checkpoint_dir) / name
+        (d / "edited_img").mkdir(parents=True, exist_ok=True)
+        (d / "input_img").mkdir(parents=True, exist_ok=True)
+        dirs[name] = (d, RunLedger(d / "ledger.jsonl"))
+
+    lat_l1, px_l1, edit_mag = [], [], []
+    with torch.no_grad():
+        for j, ex in enumerate(eval_ex):
+            orig = torch.from_numpy(_load_resized(ex.input_file, res)[None]).to(dev)
+            ids = torch.from_numpy(frozen.tokenize(ex.record.edit)).to(dev)
+            img_lat = vae.encode(orig)[0] * sf
+            cond, uncond = text(ids)[0], text(uncond_ids)[0]
+            x_T, renoise = eval_draws(args.seed, j, tuple(img_lat.shape), args.lcm_steps, dev)
+            t_lat = ip2p_edit(teacher, dist.ns, img_lat, cond, uncond,
+                              num_steps=dcfg.num_ddim_steps,
+                              guidance_scale=dcfg.guidance_scale,
+                              image_guidance_scale=dcfg.image_guidance_scale,
+                              init_latents=x_T)
+            s_lat = lcm_edit(ema.unet, dist.ns, dcfg, img_lat, cond, args.lcm_steps,
+                             x_init=x_T, renoise=renoise)
+            lat_l1.append(float(torch.mean(torch.abs(t_lat - s_lat))))
+            t_px = vae.decode(t_lat / sf).float()
+            s_px = vae.decode(s_lat / sf).float()
+            px_l1.append(float(torch.mean(torch.abs(t_px - s_px))) / 2.0)
+            edit_mag.append(float(torch.mean(torch.abs(t_px - orig))) / 2.0)
+            orig_u8 = denormalize_to_u8(orig[0]).cpu().numpy()
+            for name, px in (("eval_teacher", t_px), ("eval_student", s_px)):
+                d, led = dirs[name]
+                ep = d / "edited_img" / f"eval_{j}.png"
+                ip = d / "input_img" / f"eval_{j}.png"
+                write_png(ep, denormalize_to_u8(px[0]).cpu().numpy())
+                write_png(ip, orig_u8)
+                led.mark(ex.record, "success", {"edited_file": str(ep), "input_file": str(ip)})
+    for _, led in dirs.values():
+        led.close()
+    return {
+        "pairs": len(eval_ex),
+        "teacher_steps": dcfg.num_ddim_steps,
+        "student_steps": args.lcm_steps,
+        "latent_l1_teacher_vs_student": round(float(np.mean(lat_l1)), 4),
+        "pixel_l1_teacher_vs_student": round(float(np.mean(px_l1)), 4),
+        "pixel_l1_teacher_vs_orig": round(float(np.mean(edit_mag)), 4),
+        "eval_dirs": {k: str(v[0]) for k, v in dirs.items()},
+        "next": "run `python -m anyedit_tpu_torch eval --run-dir <dir>` on both eval "
+                "dirs for the CLIP/dirCLIP/pass-rate quality-delta table",
+    }
 
 
 def _add_shard_args(p):
@@ -402,16 +613,28 @@ def cmd_generate(args, params=None) -> int:
 
 def cmd_convert(args, params=None) -> int:
     """An official torch checkpoint -> the zoo's `<slot>.safetensors`
-    (`weights/bootstrap.py`; no JAX, Flax or safetensors package)."""
+    (`weights/bootstrap.py`; no JAX, Flax or safetensors package). `--plan`
+    prints the fetch-and-convert script for every registry name
+    (`weights/manifest.py`); `--verify` holds the source's HF module
+    against the converted port module first (`weights/verify.py`; needs
+    `transformers`) and writes nothing when they disagree."""
     from anyedit_tpu_torch.weights.bootstrap import REGISTRY, convert_checkpoint
     if args.list:
         for k, e in sorted(REGISTRY.items()):
             print(f"{k:16s} ← {e.hint}")
         return 0
+    if args.plan is not None:
+        from anyedit_tpu_torch.weights.manifest import emit_plan
+        print(emit_plan(args.plan, args.weights_dir), end="")
+        return 0
     if args.model is None or args.src is None:
-        print("convert needs --model and --src (or --list)", file=sys.stderr)
+        print("convert needs --model and --src (or --list / --plan)", file=sys.stderr)
         return 2
     out = args.out or str(Path(args.weights_dir) / f"{args.model}.safetensors")
+    if args.verify:
+        from anyedit_tpu_torch.weights.verify import verify_conversion
+        err = verify_conversion(args.model, args.src)
+        print(f"verify {args.model}: max abs err {err:.3e}")
     convert_checkpoint(args.model, args.src, out)
     print(f"wrote {out}")
     return 0
@@ -487,9 +710,10 @@ def main(argv=None, params=None) -> int:
     pt.add_argument("--resume", action="store_true")
     pt.add_argument("--tiny", action="store_true")
     pt.add_argument("--weights-dir", default=None,
-                    help="dir of tokenizer assets (the CLIP BPE merges)")
+                    help="dir of converted <slot>.safetensors frozen towers (vae / "
+                         "clip_text / clip_vision / unet_ip2p) and tokenizer assets")
     pt.add_argument("--require-weights", action="store_true",
-                    help="error out if any frozen tower has no Flax tree in params")
+                    help="error out if any frozen tower has no converted file")
     pt.add_argument("--val-count", type=int, default=4,
                     help="validation pairs per grid (0 disables grids)")
     pt.add_argument("--val-steps", type=int, default=20,
@@ -506,7 +730,8 @@ def main(argv=None, params=None) -> int:
                     help="checkpoint dir written by `train`")
     pd.add_argument("--output", default="edited.png", help="PNG path")
     pd.add_argument("--weights-dir", default=None,
-                    help="dir of tokenizer assets (the CLIP BPE merges)")
+                    help="dir of converted <slot>.safetensors frozen towers and "
+                         "tokenizer assets")
     pd.add_argument("--require-weights", action="store_true")
     pd.add_argument("--resolution", type=int, default=256)
     pd.add_argument("--steps", type=int, default=20)
@@ -517,12 +742,56 @@ def main(argv=None, params=None) -> int:
     pd.add_argument("--device", default="cuda")
     pd.set_defaults(fn=cmd_edit)
 
+    px = sub.add_parser("distill", help="LCM-distill the IP2P editor into the few-step "
+                        "student (`run --lcm-steps` loads the resulting "
+                        "unet_ip2p_lcm.safetensors)")
+    px.add_argument("--ledger", required=True, help="factory success ledger (training pairs)")
+    px.add_argument("--image-root", default=None)
+    px.add_argument("--steps", type=int, default=2000)
+    px.add_argument("--batch-size", type=int, default=8)
+    px.add_argument("--resolution", type=int, default=512)
+    px.add_argument("--lr", type=float, default=1e-5)
+    px.add_argument("--ddim-steps", type=int, default=50,
+                    help="teacher ODE grid (the factory's DDIM step count)")
+    px.add_argument("--skip", type=int, default=1, help="grid skip k per consistency target")
+    px.add_argument("--guidance", type=float, default=8.0)
+    px.add_argument("--image-guidance", type=float, default=0.9)
+    px.add_argument("--ema-decay", type=float, default=0.95)
+    px.add_argument("--lcm-steps", type=int, default=4,
+                    help="student sampling steps for the eval readout")
+    px.add_argument("--eval-count", type=int, default=8,
+                    help="held-out pairs for the teacher-vs-student quality readout "
+                         "(0 disables)")
+    px.add_argument("--seed", type=int, default=0)
+    px.add_argument("--checkpoint-dir", default="distill_ckpt")
+    px.add_argument("--checkpoint-every", type=int, default=500)
+    px.add_argument("--keep-checkpoints", type=int, default=3)
+    px.add_argument("--log-every", type=int, default=50)
+    px.add_argument("--resume", action="store_true")
+    px.add_argument("--tiny", action="store_true")
+    px.add_argument("--weights-dir", default=None,
+                    help="dir of converted <slot>.safetensors (teacher unet_ip2p, frozen "
+                         "vae / clip_text / clip_vision) and tokenizer assets; the student "
+                         "is written here")
+    px.add_argument("--require-weights", action="store_true")
+    px.add_argument("--out", default=None,
+                    help="student path (default <weights-dir>/unet_ip2p_lcm.safetensors)")
+    px.add_argument("--device", default="cuda")
+    px.set_defaults(fn=cmd_distill)
+
     pc = sub.add_parser("convert", help="torch checkpoint -> zoo <slot>.safetensors")
     pc.add_argument("--model", default=None)
     pc.add_argument("--src", default=None)
     pc.add_argument("--out", default=None)
     pc.add_argument("--weights-dir", default="weights")
     pc.add_argument("--list", action="store_true")
+    pc.add_argument("--plan", default=None, metavar="DOWNLOADS_DIR",
+                    help="print the fetch + convert shell script for every registry "
+                         "checkpoint (weights/manifest.py) instead of converting one")
+    pc.add_argument("--verify", action="store_true",
+                    help="run the source's HF module against the converted port module "
+                         "on a fixed input (fp32, CPU) and refuse to write on a mismatch "
+                         "(needs transformers and an HF model dir as --src)")
     pc.add_argument("--device", default="cuda",
                     help="unused: conversion reads and writes on the host")
     pc.set_defaults(fn=cmd_convert)

@@ -82,6 +82,13 @@ def add_noise(ns: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
     return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
 
 
+def velocity_target(ns: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                    t) -> torch.Tensor:
+    """The v-prediction target sqrt(acp) noise - sqrt(1 - acp) x0."""
+    acp = _at(ns, t, x0)
+    return torch.sqrt(acp) * noise - torch.sqrt(1.0 - acp) * x0
+
+
 def pred_x0(ns: NoiseSchedule, model_out: torch.Tensor, sample: torch.Tensor,
             t) -> tuple[torch.Tensor, torch.Tensor]:
     """Convert a model output into (x0_hat, eps_hat) per prediction_type."""

@@ -150,20 +150,27 @@ class AnySDTrainer:
         self.tx = ClippedAdamW(learning_rate)
 
     # ---- init -----------------------------------------------------------
-    def init(self, seed: int = 0, unet_tree: Any = None, adapter_tree: Any = None):
+    def init(self, seed: int = 0, unet_tree: Any = None, adapter_tree: Any = None,
+             unet_state: Optional[dict] = None):
         """(unet, adapter, opt_state) on the trainer's device. The UNet is
-        frozen (requires_grad False, eval); each part loads its Flax tree
-        through the bridge when given, else a seeded init drawn on the
-        device (`seed` for the UNet, `seed + 1` for the adapter)."""
+        frozen (requires_grad False, eval); it loads its Flax tree through
+        the bridge, or `unet_state` (the port module's state dict, as
+        `unet_ip2p.safetensors` holds it), and the adapter its tree; a part
+        given neither way gets a seeded init drawn on the device (`seed`
+        for the UNet, `seed + 1` for the adapter)."""
         from anyedit_tpu_torch.models.unet_sd import UNet2DCondition
         from anyedit_tpu_torch.weights import bridge
         from anyedit_tpu_torch.weights.init import seeded_init_
 
         ucfg = self.cfg.unet
         unet = UNet2DCondition(ucfg, device=self.device)
+        if unet_tree is not None and unet_state is not None:
+            raise ValueError("the UNet is given both as a Flax tree and as a state dict")
         if unet_tree is not None:
-            unet.load_state_dict(bridge.unet_state_dict(
-                unet_tree, len(ucfg.block_channels), ucfg.use_linear_projection), strict=True)
+            unet_state = bridge.unet_state_dict(unet_tree, len(ucfg.block_channels),
+                                                ucfg.use_linear_projection)
+        if unet_state is not None:
+            unet.load_state_dict(unet_state, strict=True)
         else:
             seeded_init_(unet, seed)
         unet.eval().requires_grad_(False)

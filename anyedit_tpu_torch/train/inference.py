@@ -63,7 +63,8 @@ class AnySDEditor:
         step, adapter_sd, _ = TrainCheckpointer(checkpoint_dir).restore_latest()
         if step is None:
             raise FileNotFoundError(f"no training checkpoint found in {checkpoint_dir}")
-        unet, adapter, _ = AnySDTrainer(cfg, device=device).init(seed, frozen.unet_tree)
+        unet, adapter, _ = AnySDTrainer(cfg, device=device).init(
+            seed, frozen.unet_tree, unet_state=frozen.unet_state)
         adapter.load_state_dict(adapter_sd, strict=True)
         return cls(cfg, frozen, unet, adapter, resolution=resolution)
 

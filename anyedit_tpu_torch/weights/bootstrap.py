@@ -272,7 +272,14 @@ def _sam(keys, src_keys, module=None) -> Plan:
     """SAM: the original segment-anything names, or the HF mirror
     (`vision_encoder.*`, facebook/sam-vit-huge)."""
     hf = any(k.startswith("vision_encoder.") for k in src_keys)
-    return {k: ("id", (_sam_hf_key(k) if hf else k,)) for k in keys}
+    plan = {k: ("id", (_sam_hf_key(k) if hf else k,)) for k in keys}
+    pe, shared = ("prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+                  "shared_image_embedding.positional_embedding")
+    if hf and pe in plan and plan[pe][1][0] not in src_keys and shared in src_keys:
+        # transformers ties the prompt encoder's Fourier matrix to the image
+        # grid's and `save_pretrained` writes it once, under the latter name
+        plan[pe] = ("id", (shared,))
+    return plan
 
 
 def _depth_hf_key(k: str):

@@ -307,7 +307,20 @@ Then the factory's command line (slice 7a), each run on a zoo of its own:
      PNG's bytes equal the run with the same tensors seeded in memory (both
      with the same tokenizer assets; the first timed, the second profiled:
      the tone_transfer record's seconds and busy share alone); with one
-     slot file gone the run raises FileNotFoundError.
+     slot file gone the run raises FileNotFoundError. Then (slice 7b) on
+     that weights dir: `distill --require-weights` at full width (512 px,
+     batch 2, 2 steps, 50 DDIM steps, 4 LCM steps, one eval pair) on the
+     run's ledger (the train phase's ungated ledger if the run left fewer
+     than two trainable successes): finite losses, the JAX command's
+     `quality` keys, K1 exactly 600 (DISTILL_CLI_K1: 30 a step, 500 in the
+     teacher's eval edit, 40 in the student's; by shape), the student file
+     with every UNet key, finite, unlike the teacher's; the distill step's,
+     the eval edits' seconds and peak GiB; `run --lcm-steps 4` of the
+     tone_transfer record loads that file, K1 exactly 40, its seconds
+     beside the 100-step record's; `eval` on eval_teacher and eval_student;
+     `convert --plan`: every convert line names `anyedit_tpu_torch` and a
+     `.safetensors` output. K1 and K2 get a row at each new shape of these
+     paths (`launches_cli_distill`, `launches_cli_lcm`).
 Every kernel count is set to 0 just before a path and read just after it.
 Any failure raises and exits non-zero. The last lines are one JSON object
 with the kernels' numbers and one with the device.
@@ -3999,9 +4012,179 @@ def cli_official_sources(dev, src: Path) -> dict:
     return paths
 
 
-def cli_phase(dev):
-    """Phase 28 (see the module docstring). Returns ({kernel: launches} of
-    the full-width run, {K1 shape: launches}, the K2 tally, numbers)."""
+# ---- slice 7b: `distill` on the command line and the fast mode it feeds -------
+
+# `distill` at full width on the round trip's converted weights: 2 steps at
+# batch 2 and 512 px (the JAX defaults' batch of 8 cut for chip time), one
+# held-out eval pair. K1: 30 a step (the teacher at 3 x 2 rows, the student
+# and the EMA target at 2), then the teacher's 50-step eval edit at 3 rows
+# and the student's 4 steps at one row, 10 a UNet call: 600.
+DISTILL_CLI_STEPS, DISTILL_CLI_DDIM = 2, 50
+DISTILL_CLI_K1 = (DISTILL_CLI_STEPS * K1_PER_DISTILL_STEP
+                  + (DISTILL_CLI_DDIM + LCM_STEPS) * K1_PER_UNET_CALL)
+# the `quality` keys of the JAX command's readout (anyedit_tpu/cli.py:615-625)
+DISTILL_QUALITY_KEYS = {"pairs", "teacher_steps", "student_steps",
+                        "latent_l1_teacher_vs_student", "pixel_l1_teacher_vs_student",
+                        "pixel_l1_teacher_vs_orig", "eval_dirs", "next"}
+CLI_PATHS = {"cli": CLI_PATH,
+             "cli_distill": "cli distill: 2 steps at batch 2, 512 px (the teacher at 3 x 2 rows, "
+                            "the student and the EMA target at 2, the VAE encoder at batch 2), "
+                            "then one eval pair (the teacher's 50-step edit at 3 rows, the "
+                            "student's 4 steps at one, the VAE at batch 1)",
+             "cli_lcm": "cli run --lcm-steps 4: the tone_transfer record on the distilled "
+                        "student (4 UNet calls at one row)"}
+
+
+def cli_fast_mode(dev, root: Path, wdir: Path, base: list, ledger: Path, image_root: Path,
+                  fallback: tuple):
+    """Phase 28's `distill` -> `run --lcm-steps` -> `eval` chain and `convert
+    --plan` (see the module docstring). `wdir` holds the round trip's
+    converted slots; `fallback` is the train phase's ungated (ledger, image
+    root), taken when the run's ledger has fewer than two trainable
+    successes. Returns ({path: {kernel: launches}}, {path: K1 tally},
+    {path: K2 tally}, numbers)."""
+    import torch
+
+    import anyedit_tpu_torch.diffusion.ip2p as ip2p_mod
+    import anyedit_tpu_torch.train.distill as distill_mod
+    from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET, UNet2DCondition
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime import zoo as zoo_mod
+    from anyedit_tpu_torch.train.data import examples_from_ledger
+    from anyedit_tpu_torch.weights.bootstrap import REGISTRY
+    from anyedit_tpu_torch.weights.files import read_safetensors
+
+    launches, k1, k2, nums = {}, {}, {}, {}
+    n_ex = len(examples_from_ledger(ledger, image_root))
+    if n_ex < 2:
+        ledger, image_root = fallback
+        n_ex = len(examples_from_ledger(ledger, image_root))
+    ck = root / "distill_ckpt"
+    steps, teacher_calls, student_calls = [], [], []
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_nomax.launches = group_norm.launches = 0
+    with k1_tally() as k1t, k2_tally() as k2t, \
+            counted(distill_mod.LCMDistiller, "distill_step", steps), \
+            counted(ip2p_mod, "ip2p_edit", teacher_calls), \
+            counted(distill_mod, "lcm_edit", student_calls):
+        t0 = time.perf_counter()
+        rc, text = cli_main(["distill", "--ledger", str(ledger), "--image-root", str(image_root),
+                             "--weights-dir", str(wdir), "--require-weights",
+                             "--steps", str(DISTILL_CLI_STEPS), "--batch-size", "2",
+                             "--resolution", "512", "--ddim-steps", str(DISTILL_CLI_DDIM),
+                             "--lcm-steps", str(LCM_STEPS), "--eval-count", "1",
+                             "--checkpoint-dir", str(ck), "--log-every", "1",
+                             "--device", "cuda"])
+        torch.cuda.synchronize()
+        nums["distill_command_s"] = time.perf_counter() - t0
+    launches["cli_distill"] = {"flash_nomax": flash_nomax.launches,
+                               "group_norm": group_norm.launches}
+    k1["cli_distill"], k2["cli_distill"] = dict(k1t), dict(k2t)
+    nums["distill_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [json.loads(x)["loss"] for x in text.splitlines() if x.startswith('{"step"')]
+    report = json.loads(text[text.rindex("\n{") + 1:])
+    q = report.get("quality", {})
+    nums.update(distill_losses=losses, distill_step_s=[x[2] for x in steps],
+                teacher_eval_s=[x[2] for x in teacher_calls],
+                student_eval_s=[x[2] for x in student_calls], quality=q)
+    print(f"cli distill on {n_ex} trainable examples ({ledger.name} under {image_root.name}): rc "
+          f"{rc}, losses {losses}, step s {[round(x, 4) for x in nums['distill_step_s']]}, "
+          f"launches {launches['cli_distill']} (a step {[x[:2] for x in steps]}), K1 by shape "
+          f"{k1['cli_distill']}; eval: the teacher's {DISTILL_CLI_DDIM}-step edit "
+          f"{[round(x[2], 4) for x in teacher_calls]} s (K1 {[x[0] for x in teacher_calls]}), the "
+          f"student's {LCM_STEPS} steps {[round(x[2], 4) for x in student_calls]} s (K1 "
+          f"{[x[0] for x in student_calls]}); quality {q}; the command "
+          f"{nums['distill_command_s']:.2f} s, peak {nums['distill_peak_gib']:.2f} GiB",
+          flush=True)
+    require(rc == 0 and len(losses) == DISTILL_CLI_STEPS and all(map(math.isfinite, losses)),
+            "distill exits 0 with finite losses")
+    require(set(q) == DISTILL_QUALITY_KEYS and q["pairs"] == 1,
+            "the quality readout has the JAX command's keys")
+    require(launches["cli_distill"]["flash_nomax"] == DISTILL_CLI_K1
+            and sum(k1t.values()) == DISTILL_CLI_K1,
+            f"K1 exactly {DISTILL_CLI_K1} in the distill command")
+    require([x[0] for x in steps] == [K1_PER_DISTILL_STEP] * DISTILL_CLI_STEPS
+            and [x[0] for x in teacher_calls] == [DISTILL_CLI_DDIM * K1_PER_UNET_CALL]
+            and [x[0] for x in student_calls] == [LCM_STEPS * K1_PER_UNET_CALL],
+            "K1 30 a step, 500 in the teacher's eval edit, 40 in the student's")
+    student_path = wdir / "unet_ip2p_lcm.safetensors"
+    require(report["student_checkpoint"] == str(student_path) and student_path.exists(),
+            "the student is written to <weights-dir>/unet_ip2p_lcm.safetensors")
+    student = read_safetensors(student_path)
+    teacher = read_safetensors(wdir / "unet_ip2p.safetensors")
+    keys = set(UNet2DCondition(SD15_IP2P_UNET, device="meta").state_dict())
+    finite = all(bool(torch.isfinite(v).all()) for v in student.values())
+    differs = any(not torch.equal(v.float(), teacher[k].float()) for k, v in student.items())
+    require(set(student) == keys and finite and differs,
+            "the student holds every UNet key, finite, and differs from the teacher")
+    del student, teacher
+    for name in ("eval_teacher", "eval_student"):
+        require(len((ck / name / "ledger.jsonl").read_text().splitlines()) == 1
+                and len(list((ck / name / "edited_img").glob("*.png"))) == 1,
+                f"{name} holds one ledger line and its PNG")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fast mode on the command line: the tone_transfer record on the student
+    timing, reads = {}, []
+    real_read = zoo_mod.read_safetensors
+
+    def read(path):
+        reads.append(Path(path))
+        return real_read(path)
+    zoo_mod.read_safetensors = read
+    flash_nomax.launches = group_norm.launches = 0
+    try:
+        with k1_tally() as lk1, k2_tally() as lk2, executor_timed(timing):
+            rc, _ = cli_main(base + ["--output", str(root / "rt_lcm"), "--weights", str(wdir),
+                                     "--require-weights", "--lcm-steps", str(LCM_STEPS)])
+    finally:
+        zoo_mod.read_safetensors = real_read
+    launches["cli_lcm"] = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    k1["cli_lcm"], k2["cli_lcm"] = dict(lk1), dict(lk2)
+    nums["lcm_record_s"] = timing["run_s"]
+    led = [json.loads(x) for x in (root / "rt_lcm" / "ledger.jsonl").read_text().splitlines()]
+    print(f"cli run --lcm-steps {LCM_STEPS} of the tone_transfer record: rc {rc}, status "
+          f"{[e['status'] for e in led]}, executor {timing['run_s']:.3f} s, launches "
+          f"{launches['cli_lcm']}, K1 by shape {k1['cli_lcm']}; the student file read "
+          f"{student_path in reads}", flush=True)
+    require(rc == 0 and [e["status"] for e in led] == ["success"],
+            "run --lcm-steps: the tone_transfer record succeeds")
+    require(student_path in reads, "run --lcm-steps loads unet_ip2p_lcm.safetensors")
+    require(launches["cli_lcm"]["flash_nomax"] == LCM_STEPS * K1_PER_UNET_CALL,
+            f"K1 exactly {LCM_STEPS * K1_PER_UNET_CALL} in run --lcm-steps {LCM_STEPS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name in ("eval_teacher", "eval_student"):
+        t0 = time.perf_counter()
+        rc, text = cli_main(["eval", "--run-dir", str(ck / name), "--output",
+                             str(root / f"{name}.json"), "--device", "cuda"])
+        nums[f"{name}_s"] = time.perf_counter() - t0
+        table = json.loads(text.strip().splitlines()[-1])
+        print(f"cli eval --run-dir {name} ({nums[f'{name}_s']:.3f} s): {table}", flush=True)
+        require(rc == 0 and table["overall"]["count"] == 1, f"eval scores {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rc, text = cli_main(["convert", "--plan", str(root / "downloads"), "--weights-dir",
+                         str(root / "planned")])
+    lines = [x for x in text.splitlines() if "convert --model" in x]
+    print(f"cli convert --plan: {len(lines)} convert lines, e.g. {lines[0]}", flush=True)
+    require(rc == 0 and len(lines) == len(REGISTRY)
+            and all(x.startswith("python -m anyedit_tpu_torch convert ") and ".safetensors" in x
+                    for x in lines),
+            "convert --plan names the port's command and a .safetensors output on every line")
+    return launches, k1, k2, nums
+
+
+def cli_phase(dev, fallback: tuple):
+    """Phase 28 (see the module docstring); `fallback`: `cli_fast_mode`'s.
+    Returns ({path: {kernel: launches}}, {path: {K1 shape: launches}},
+    {path: K2 tally}, numbers) for the paths of CLI_PATHS."""
     import torch
 
     from anyedit_tpu_torch.core.png import read_png
@@ -4137,10 +4320,18 @@ def cli_phase(dev):
     print(f"cli round trip: {len(sources)} slots written under the official names and "
           f"converted in {nums['write_convert_s']:.2f} s; the edited PNG equal byte for byte "
           f"({len(a)} bytes); a missing gdino.safetensors raises", flush=True)
+    (root / "gdino.safetensors.away").rename(wdir / "gdino.safetensors")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fast_launches, fast_k1, fast_k2, fast_nums = cli_fast_mode(
+        dev, root, wdir, base, out / "ledger.jsonl", imgs, fallback)
+    nums.update(fast_nums)
     shutil.rmtree(root)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, dict(k1t), dict(k2t), nums
+    return ({"cli": launches, **fast_launches}, {"cli": dict(k1t), **fast_k1},
+            {"cli": dict(k2t), **fast_k2}, nums)
 
 
 def main() -> int:
@@ -4391,7 +4582,6 @@ def main() -> int:
               f"{np.median(step_s) * 1e3:.1f} ms a train step (host clock, encode and loading "
               f"outside), {TRAIN_BATCH / np.median(step_s):.1f} samples/s; validation edit "
               f"{train_runs['train_resume']['edit_s'][0]:.3f} s", flush=True)
-    shutil.rmtree(keep_root)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4415,15 +4605,23 @@ def main() -> int:
 
     # the factory's command line (slice 7a), on zoos of its own
     with phase("cli"):
-        cli_launches, cli_k1, cli_k2, cx = cli_phase(dev)
+        cli_launches, cli_k1, cli_k2, cx = cli_phase(
+            dev, (keep_root / "ungated" / "ledger.jsonl", keep_root / "images"))
+        shutil.rmtree(keep_root)
         print(f"{card_line}: run over {len(CLI_RECORDS)} records {cx['s_per_record']:.3f} s a "
               f"record (busy {cx['busy_share'] * 100:.1f} %), the tone_transfer record alone "
               f"{cx['tone_warm_s']:.3f} s (busy "
-              f"{cx['tone_warm_busy_share'] * 100:.1f} %), eval {cx['eval_s']:.3f} s", flush=True)
-        cli_k1_rows = new_k1_rows(dev, {"cli": cli_k1}, set(K1_SHAPES)
-                                  | {s for s, _ in SLICE_K1} | {s for *_, s in train_k1_rows})
+              f"{cx['tone_warm_busy_share'] * 100:.1f} %), eval {cx['eval_s']:.3f} s; distill "
+              f"step at batch 2, 512 px {np.median(cx['distill_step_s']) * 1e3:.1f} ms, the "
+              f"eval's teacher edit ({DISTILL_CLI_DDIM} steps) {cx['teacher_eval_s'][0]:.3f} s "
+              f"and student edit ({LCM_STEPS} steps) {cx['student_eval_s'][0]:.3f} s, the "
+              f"command {cx['distill_command_s']:.2f} s, peak {cx['distill_peak_gib']:.2f} GiB; "
+              f"run --lcm-steps {LCM_STEPS} {cx['lcm_record_s']:.3f} s a record against "
+              f"{cx['tone_warm_s']:.3f} s at 100 steps", flush=True)
+        cli_k1_rows = new_k1_rows(dev, cli_k1, set(K1_SHAPES) | {s for s, _ in SLICE_K1}
+                                  | {s for *_, s in train_k1_rows})
         held |= {key for *_, key in train_k2_rows}
-        cli_k2_rows, cli_seen = new_k2_rows(dev, {"cli": cli_k2}, held)
+        cli_k2_rows, cli_seen = new_k2_rows(dev, cli_k2, held)
 
     def entry(name, source, replaces, launches, rows):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4554,16 +4752,19 @@ def main() -> int:
     for name, new_rows in (("flash_nomax", cli_k1_rows), ("group_norm", cli_k2_rows)):
         for tag, r, path, per_path, key in new_rows:
             row = entry(name, *sources[name], per_path[path], [(tag, r)])
-            row["path"] = CLI_PATH
+            row.update({f"launches_{p}": n for p, n in per_path.items() if p != path})
+            row["path"] = CLI_PATHS[path]
             kernels.append(row)
             (k2_by_key if name == "group_norm" else k1_by_shape)[key] = row
     for key, per_path in cli_seen.items():
         k2_by_key[key].update({f"launches_{p}": n for p, n in per_path.items()})
-    for shape, n in cli_k1.items():
-        if shape in k1_by_shape:
-            k1_by_shape[shape]["launches_cli"] = n
+    for path, tally in cli_k1.items():
+        for shape, n in tally.items():
+            if shape in k1_by_shape:
+                k1_by_shape[shape][f"launches_{path}"] = n
     for row in kernels[:2]:
-        row["launches_cli"] = cli_launches[row["name"]]
+        for path, counts in cli_launches.items():
+            row[f"launches_{path}"] = counts[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
