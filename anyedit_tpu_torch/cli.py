@@ -27,10 +27,21 @@ slot names, and the tokenizer assets; Flax `.msgpack` trees are refused.
 the zoo's slot names and "llama" for `run` / `generate`), which the tests
 use; a slot given both ways is refused. Images are read with
 `core/image.py::load_rgb`, which decodes PNG without Pillow; the GPU
-machine has no Pillow, so inputs there must be PNG. The JAX mesh (dp / tp
-/ ep sharding) has no counterpart: one process runs on one device. In
-`train` and `distill`, step s draws from `torch.Generator` seeded with
-(seed << 32) + s, so a resumed run draws what an uninterrupted one would.
+machine has no Pillow, so inputs there must be PNG. In `train` and
+`distill`, step s draws from `torch.Generator` seeded with (seed << 32) +
+s, so a resumed run draws what an uninterrupted one would.
+
+Data parallelism (the JAX mesh's `dp` axis; `core/dist.py`): `train` runs
+under `torchrun --nproc_per_node N -m anyedit_tpu_torch train ...`, one
+rank a card over NCCL (`--device cpu`: gloo), N = 1 included. N must
+divide `--batch-size`;
+every rank reads the same sampler stream, encodes its rows of each batch,
+draws the whole batch's draws and keeps its rows, and averages the
+gradients with the others, so the run computes what one process does at
+that batch. Rank 0 alone writes the checkpoints and the validation grids
+and prints; `--resume` reads the same step on every rank. `distill` stays
+one process, as the JAX command does, and refuses a world above 1. The JAX
+`tp` / `ep` axes have no counterpart.
 """
 
 from __future__ import annotations
@@ -99,8 +110,20 @@ def cmd_train(args, params=None) -> int:
     """AnySD Stage-II fine-tune from a factory success ledger: mixture
     sampler -> encode on the device (no grad) -> adapter train step ->
     checkpoint / rotate / resume, with validation grids."""
+    from anyedit_tpu_torch.core import dist
+
+    dist.check_batch(args.batch_size, dist.env_world())     # refused before the group
+    group = dist.from_env(args.device)
+    try:
+        return _train(args, params, group)
+    finally:
+        dist.destroy(group)
+
+
+def _train(args, params, group) -> int:
     import torch
 
+    from anyedit_tpu_torch.core.dist import barrier, batch_rows, is_main
     from anyedit_tpu_torch.core.image import load_rgb, pil_resize
     from anyedit_tpu_torch.ops.resize import imagenet_normalize, resize_image
     from anyedit_tpu_torch.train.anysd import AnySDTrainer
@@ -111,7 +134,8 @@ def cmd_train(args, params=None) -> int:
     from anyedit_tpu_torch.train.frozen import load_frozen_encoders
 
     cfg, text_cfg, vis_cfg, vae_cfg = _anysd_configs(args.tiny)
-    dev = torch.device(args.device)
+    dev = torch.device(args.device) if group is None else group.device
+    main = is_main(group)
     trainer = AnySDTrainer(cfg, learning_rate=args.lr, device=dev)
     res = args.resolution
     frozen = load_frozen_encoders(
@@ -143,7 +167,8 @@ def cmd_train(args, params=None) -> int:
         if step0 is not None:
             adapter.load_state_dict(ad, strict=True)
             start_step, opt_state = step0, op
-            print(f"resumed from step {start_step}")
+            if main:
+                print(f"resumed from step {start_step}")
 
     examples = examples_from_ledger(args.ledger, args.image_root)
     if not examples:
@@ -152,7 +177,7 @@ def cmd_train(args, params=None) -> int:
     sampler = MixtureSampler(examples, seed=args.seed)
 
     val_pairs = []
-    if args.val_count > 0:
+    if args.val_count > 0 and main:
         from anyedit_tpu_torch.train.inference import AnySDEditor
         from anyedit_tpu_torch.train.validation import log_validation
 
@@ -175,23 +200,31 @@ def cmd_train(args, params=None) -> int:
     bit = pixel_batches(sampler, args.batch_size, res, args.steps - start_step,
                         frozen.tokenize)
     for step, pixel in enumerate(bit, start=start_step):
-        batch = encode_batch(pixel)
+        # every rank reads the whole batch's stream and encodes its rows
+        batch = encode_batch(batch_rows(pixel, group))
         gen = torch.Generator(device=dev).manual_seed((args.seed << 32) + step)
-        draws = trainer.draw(gen, batch)
-        adapter, opt_state, loss = trainer.train_step(adapter, opt_state, unet, batch, draws)
+        draws = trainer.draw(gen, batch, group)
+        adapter, opt_state, loss = trainer.train_step(adapter, opt_state, unet, batch, draws,
+                                                      group=group)
         losses.append(float(loss))
-        if (step + 1) % args.log_every == 0:
+        if main and (step + 1) % args.log_every == 0:
             print(json.dumps({"step": step + 1, "loss": losses[-1]}))
         if (step + 1) % args.checkpoint_every == 0:
-            ckpt.save(step + 1, adapter, opt_state)
-            if val_pairs:
-                run_validation(step + 1)
-                last_val = step + 1
-    ckpt.save(args.steps, adapter, opt_state)
-    if val_pairs and last_val != args.steps:
-        run_validation(args.steps)
-    ckpt.wait()
-    ckpt.close()
+            if main:
+                ckpt.save(step + 1, adapter, opt_state)
+                if val_pairs:
+                    run_validation(step + 1)
+                    last_val = step + 1
+            barrier(group)
+    if main:
+        ckpt.save(args.steps, adapter, opt_state)
+        if val_pairs and last_val != args.steps:
+            run_validation(args.steps)
+        ckpt.wait()
+        ckpt.close()
+    barrier(group)
+    if not main:
+        return 0
     print(json.dumps({"final_step": args.steps,
                       "mean_loss": float(np.mean(losses)) if losses else None,
                       "examples": len(examples),
@@ -234,6 +267,7 @@ def cmd_distill(args, params=None) -> int:
 
     import torch
 
+    from anyedit_tpu_torch.core.dist import env_world
     from anyedit_tpu_torch.models.unet_sd import UNet2DCondition
     from anyedit_tpu_torch.train.checkpoint import TrainCheckpointer
     from anyedit_tpu_torch.train.data import (
@@ -245,6 +279,11 @@ def cmd_distill(args, params=None) -> int:
     from anyedit_tpu_torch.weights.files import write_safetensors
     from anyedit_tpu_torch.weights.init import seeded_init_
 
+    if env_world() > 1:
+        raise RuntimeError(
+            f"distill runs as one process, as the JAX command does (it builds no mesh); got "
+            f"WORLD_SIZE={env_world()}: run it without torchrun (`LCMDistiller.distill_step` "
+            f"takes a group for data-parallel distillation through the library)")
     anysd_cfg, text_cfg, vis_cfg, vae_cfg = _anysd_configs(args.tiny)
     ucfg = anysd_cfg.unet
     dcfg = DistillConfig(unet=ucfg, num_ddim_steps=args.ddim_steps, skip=args.skip,

@@ -15,11 +15,16 @@ As in the JAX module: every attention is the plain `sdpa` (fp32 logits and
 softmax), the bi-directional fusion runs at its own ffn_dim / 2 width with
 heads / 2 heads, the text enhancer at heads / 2 and ffn_dim / 2, the four
 input-projection GroupNorms (32 groups) go through `layers.GroupNorm` (K2 on
-the card), the extra level is a stride-2 3x3 "SAME" conv of the raw last
-backbone map, query selection keeps the top `num_queries` tokens by their
+the card), the extra level is a stride-2 3x3 conv of the raw last backbone
+map, query selection keeps the top `num_queries` tokens by their
 best text similarity (ties to the lower index), and the phrase logits are
 a plain dot product with no scale (the box thresholds assume it).
 Activations mix bf16 and fp32 as JAX's type promotion leaves them.
+
+One deliberate difference: the extra level's conv pads (1, 1), as the
+official model and HF's `GroundingDinoForObjectDetection` do. The JAX
+module's Flax `padding="SAME"` pads (0, 1) on an even map (the two agree on
+an odd one, such as Swin-B's 25x25 last map at the 800 px bucket).
 """
 
 from __future__ import annotations
@@ -377,6 +382,13 @@ class _Transformer(nn.Module):
         self.param_init = {"level_embed": 1.0}
 
 
+class _ExtraLevelConv(nn.Conv2d):
+    """nn.Conv2d with the input cast to the weight's dtype (NCHW)."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
 class GroundingDINO(nn.Module):
     def __init__(self, cfg: GDINOConfig = GDINO_SWINB, device=None):
         super().__init__()
@@ -392,7 +404,8 @@ class GroundingDINO(nn.Module):
         for _ in range(c.num_levels - len(dims)):
             d_in = dims[-1] if len(projs) == len(dims) else c.hidden
             projs.append(nn.Sequential(
-                SameConv2d(d_in, c.hidden, 3, stride=2, dtype=c.dtype, device=device),
+                _ExtraLevelConv(d_in, c.hidden, 3, stride=2, padding=1, dtype=c.dtype,
+                                device=device),
                 GroupNorm(c.hidden, groups, device=device)))
         self.input_proj = nn.ModuleList(projs)
         self.transformer = _Transformer(c, device)

@@ -123,6 +123,7 @@ import torch
 import torch.nn.functional as F
 
 from anyedit_tpu_torch.core.config import CanvasConfig
+from anyedit_tpu_torch.core.dist import Group, all_gather_objects, rank_rows
 from anyedit_tpu_torch.diffusion import flux_sample, ip2p_edit, sample_inpaint, ultraedit_edit
 from anyedit_tpu_torch.diffusion.processors import AttentionStore, mask_from_ca
 from anyedit_tpu_torch.diffusion.regional import build_regional_conditioning, parse_canvas_plan
@@ -1016,7 +1017,8 @@ class ModelZoo:
             def edit_batch(images, instructions, masks=None, steps: int = 50,
                            s_txt: float = 8.0, s_img: float = 0.9, seeds=None,
                            init_latents: Optional[torch.Tensor] = None,
-                           renoise: Optional[torch.Tensor] = None) -> list[np.ndarray]:
+                           renoise: Optional[torch.Tensor] = None,
+                           group: Optional[Group] = None) -> list[np.ndarray]:
                 """`edit` over a list, in chunks of at most `edit_batch_bucket`
                 records: one VAE encode, one batch-3n UNet call per step and
                 one VAE decode per chunk. Record i's start latents are
@@ -1030,15 +1032,30 @@ class ModelZoo:
                 contract there. With `lcm_steps`, each record draws its
                 sampler's re-noise after its start latents from its own
                 generator, as `edit` does (`renoise`: (lcm_steps - 1, n, ...)),
-                so every record equals its `edit`, masked or not."""
+                so every record equals its `edit`, masked or not.
+
+                With a `core.dist.Group` (the JAX `ip2p_batch_fn(mesh=...)`'s
+                dp split), the chunk is rounded up to a multiple of dp and
+                each rank edits its contiguous rows of each chunk: the
+                chunk-wide mask decision and re-noise draw are the whole
+                chunk's (the rank keeps its rows), so every record equals
+                one process's at the rounded chunk. The uint8 outputs are
+                gathered, and every rank returns the whole list in order."""
                 n = len(images)
                 if len(instructions) != n:
                     raise ValueError(f"{n} images, {len(instructions)} instructions")
                 masks = list(masks) if masks is not None else [None] * n
                 seeds = list(seeds) if seeds is not None else list(range(n))
-                out: list[np.ndarray] = []
-                for s0 in range(0, n, c.edit_batch_bucket):
-                    part = slice(s0, s0 + c.edit_batch_bucket)
+                dp, rank = (1, 0) if group is None else (group.size, group.rank)
+                # the JAX `bkt += (-bkt) % ndp`
+                bucket = c.edit_batch_bucket + (-c.edit_batch_bucket) % dp
+                out: list[tuple[int, np.ndarray]] = []
+                for s0 in range(0, n, bucket):
+                    whole = slice(s0, min(s0 + bucket, n))
+                    sub = rank_rows(whole.stop - s0, rank, dp)
+                    part = slice(s0 + sub.start, s0 + sub.stop)
+                    if part.start == part.stop:
+                        continue            # no rows of this chunk on this rank
                     imgs = images[part]
                     lat = self._to_latents(imgs)
                     cond = torch.cat([text(t) for t in instructions[part]]).to(torch.bfloat16)
@@ -1051,17 +1068,20 @@ class ModelZoo:
                         # each record's re-noise draws, as `edit` draws them
                         ren = renoise[:, part].to(dev) if renoise is not None else torch.cat(
                             [draw_renoise(one, g) for g in gens], dim=1)
-                    if any(m is not None for m in masks[part]):
+                    if any(m is not None for m in masks[whole]):
                         ones = torch.ones(lat.shape[1:3] + (1,), device=dev)
                         mask = torch.stack([ones if m is None else self._latent_mask(m, 0.5)
                                             for m in masks[part]])
                         if c.lcm_steps == 0:
+                            # the whole chunk's draw; this rank's rows of it
                             ren = renoise[part].to(dev) if renoise is not None else torch.randn(
-                                lat.shape, device=dev,
-                                generator=torch.Generator(device=dev).manual_seed(0))
+                                (whole.stop - s0,) + lat.shape[1:], device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))[sub]
                     lat = run(lat, cond, mask, init, ren, steps, s_txt, s_img)
-                    out += self._from_latents(lat, [im.shape[:2] for im in imgs])
-                return out
+                    out += enumerate(self._from_latents(lat, [im.shape[:2] for im in imgs]),
+                                     start=part.start)
+                gathered = [x for got in all_gather_objects(out, group) for x in got]
+                return [img for _, img in sorted(gathered, key=lambda x: x[0])]
 
             edit.batch = edit_batch
             return edit

@@ -10,9 +10,15 @@ The JAX `loss_fn` draws the timesteps, the noise and the dropout uniform
 from `split(key, 3)` inside; here they are an argument, `draws = {"t",
 "noise", "p"}` (`AnySDTrainer.draw` makes them from a `torch.Generator`), because
 jax.random and torch draw different numbers and the tests hand both sides
-the same ones. The JAX `shardings` / `shard_tree` (the pjit mesh) have no
-counterpart here. Latents keep the port UNet's public layout, NHWC, and the
+the same ones. Latents keep the port UNet's public layout, NHWC, and the
 UNet input concatenates on the last axis, as in the JAX package.
+
+Data parallelism (the JAX `shardings` put the batch on the mesh's `dp`
+axis): with a `core.dist.Group`, each rank holds its rows of the batch,
+`draw` makes the whole batch's draws and keeps the rank's rows, and
+`train_step` averages the gradients and the loss over the ranks before
+the clip, so the clip sees the global norm, as `clip_by_global_norm` does
+on the sharded batch. The JAX `tp` / `ep` layouts have no counterpart.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from anyedit_tpu_torch.core.dist import Group, average, batch_rows
 from anyedit_tpu_torch.models.unet_sd import SD15_IP2P_UNET, TINY_UNET, UNetConfig
 from anyedit_tpu_torch.schedulers import NoiseSchedule, add_noise, make_noise_schedule
 from anyedit_tpu_torch.train.optim import ClippedAdamW
@@ -184,16 +191,20 @@ class AnySDTrainer:
     def init_opt(self, adapter: TaskMoEAdapter) -> dict:
         return self.tx.init(dict(adapter.named_parameters()))
 
-    def draw(self, generator: torch.Generator, batch: dict) -> dict:
+    def draw(self, generator: torch.Generator, batch: dict,
+             group: Optional[Group] = None) -> dict:
         """The loss's three draws for the batch, on its device: t uniform
         over the training steps, noise N(0, 1) of the latents' shape, p
-        uniform in [0, 1)."""
+        uniform in [0, 1). With a group, `batch` is this rank's rows: the
+        draws are made at the whole batch's shape and the rank keeps its
+        rows, so they are the rows one process would draw."""
         lat = batch["edited_latents"]
-        b, dev = lat.shape[0], lat.device
-        return {"t": torch.randint(0, self.ns.num_train_steps, (b,), generator=generator,
-                                   device=dev),
-                "noise": torch.randn(lat.shape, generator=generator, device=dev),
-                "p": torch.rand((b,), generator=generator, device=dev)}
+        b, dev = lat.shape[0] * (1 if group is None else group.size), lat.device
+        return batch_rows({"t": torch.randint(0, self.ns.num_train_steps, (b,),
+                                              generator=generator, device=dev),
+                           "noise": torch.randn((b,) + lat.shape[1:], generator=generator,
+                                                device=dev),
+                           "p": torch.rand((b,), generator=generator, device=dev)}, group)
 
     # ---- loss -----------------------------------------------------------
     def loss_fn(self, adapter: TaskMoEAdapter, unet, batch: dict, draws: dict) -> torch.Tensor:
@@ -213,11 +224,15 @@ class AnySDTrainer:
         return torch.mean(torch.square(eps - noise))
 
     def train_step(self, adapter: TaskMoEAdapter, opt_state: dict, unet, batch: dict,
-                   draws: dict):
+                   draws: dict, group: Optional[Group] = None):
         """Loss, backward, clip and AdamW. The adapter is updated in place;
-        returns (adapter, opt_state, loss)."""
+        returns (adapter, opt_state, loss). With a group, the gradients and
+        the loss are averaged over the ranks (fp32) before the clip."""
         params = dict(adapter.named_parameters())
         loss = self.loss_fn(adapter, unet, batch, draws)
         grads = torch.autograd.grad(loss, list(params.values()))
+        loss = loss.detach()
+        if group is not None:
+            grads, loss = average(grads, loss, group)
         opt_state = self.tx.update_(params, dict(zip(params, grads)), opt_state)
-        return adapter, opt_state, loss.detach()
+        return adapter, opt_state, loss

@@ -19,6 +19,11 @@ JAX gradient of the cast is.
 
 The JAX `loss_fn` draws the grid index n and the noise from a key; here
 they are `draws = {"n", "noise"}` (`LCMDistiller.draw` makes them).
+The JAX step is dp-batched on the mesh; here, with a `core.dist.Group`,
+each rank holds its rows, `draw` keeps the rank's rows of the whole batch's
+draws and `distill_step` averages the gradients (fp32) and the loss over
+the ranks before the update, so the masters, and the EMA computed from
+them, stay equal bit for bit on every rank.
 `lcm_edit` takes its start latents and re-noise draws from the caller or
 from a generator.
 """
@@ -30,6 +35,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
+from anyedit_tpu_torch.core.dist import Group, average, batch_rows
 from anyedit_tpu_torch.models.unet_sd import (
     SD15_IP2P_UNET, TINY_UNET, UNet2DCondition, UNetConfig,
 )
@@ -127,12 +133,16 @@ class LCMDistiller:
                       {k: v.clone() for k, v in masters.items()})
         return teacher, student, ema, self.tx.init(student.masters)
 
-    def draw(self, generator: torch.Generator, batch: dict) -> dict:
+    def draw(self, generator: torch.Generator, batch: dict,
+             group: Optional[Group] = None) -> dict:
+        """The grid indices and the noise; with a group, the rank's rows of
+        the whole batch's draws (`AnySDTrainer.draw`)."""
         lat = batch["edited_latents"]
-        b = lat.shape[0]
-        return {"n": torch.randint(0, self.cfg.num_ddim_steps - self.cfg.skip, (b,),
-                                   generator=generator, device=lat.device),
-                "noise": torch.randn(lat.shape, generator=generator, device=lat.device)}
+        b = lat.shape[0] * (1 if group is None else group.size)
+        return batch_rows({"n": torch.randint(0, self.cfg.num_ddim_steps - self.cfg.skip, (b,),
+                                              generator=generator, device=lat.device),
+                           "noise": torch.randn((b,) + lat.shape[1:], generator=generator,
+                                                device=lat.device)}, group)
 
     # ---- pieces ----------------------------------------------------------
     def _teacher_eps(self, teacher, x_t, t, batch):
@@ -173,13 +183,17 @@ class LCMDistiller:
         return torch.mean(torch.sqrt(torch.square(d) + cfg.huber_c ** 2) - cfg.huber_c)
 
     def distill_step(self, student: Replica, ema: Replica, opt_state: dict, teacher,
-                     batch: dict, draws: dict):
+                     batch: dict, draws: dict, group: Optional[Group] = None):
         """Gradients -> AdamW on the student's masters -> EMA of the masters;
         both modules rewritten from their masters. Returns (student, ema,
-        opt_state, loss)."""
+        opt_state, loss). With a group, the gradients and the loss are
+        averaged over the ranks (fp32) before the update."""
         params = dict(student.unet.named_parameters())
         loss = self.loss_fn(student.unet, ema.unet, teacher, batch, draws)
         grads = torch.autograd.grad(loss, list(params.values()))
+        loss = loss.detach()
+        if group is not None:
+            grads, loss = average(grads, loss, group)
         opt_state = self.tx.update_(student.masters, dict(zip(params, grads)), opt_state)
         d = self.cfg.ema_decay
         with torch.no_grad():
@@ -187,7 +201,7 @@ class LCMDistiller:
                 ema.masters[k] = d * e + (1.0 - d) * student.masters[k]
         student.sync_()
         ema.sync_()
-        return student, ema, opt_state, loss.detach()
+        return student, ema, opt_state, loss
 
 
 @torch.no_grad()

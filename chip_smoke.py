@@ -273,6 +273,25 @@ Then training (slice 6a), on models of their own:
      (DISCONNECT_COS, DISCONNECT_REL_L2 against plain autograd; two
      controls, K1's outputs cut from autograd and K2's cut at all but the
      last norm, must each fail it);
+     then `dp` (slice 7c, data parallelism), in subprocesses (this process
+     joins no group; a worker that exits non-zero fails the run): (a)
+     `python -m torch.distributed.run --standalone --nproc_per_node 1` runs
+     `cli.main` with the train run's arguments (this script's `--dp-train`
+     worker, which counts K1 and K2 around each step): the command joins a
+     1-rank NCCL group and averages each step's gradients in it, its losses
+     equal the train run's bit for bit, K1 5 and K2 61 a step, rank 0 writes
+     the checkpoint. (b) Two `--dp-rank` workers, gloo ranks on the one
+     card: DP_STEPS AnySD steps at 8 of the 16 rows each, against rank 0's
+     one process at 16 (the loss within DP_LOSS_REL, each step's averaged
+     gradient within the disconnect check's bounds, the adapter's change at
+     cosine DP_DTHETA_COS; a control, rank 0's rows without the average,
+     must fail both; the adapter equal on both ranks bit for bit; K1 5 and
+     K2 61 a step on each rank); then `ip2p().batch(..., group=...)` of DP_EDIT 512 px
+     records (one masked) at DP_EDIT_STEPS steps split over the ranks: every
+     rank returns all of them, the same bytes, within DP_EDIT_LEVELS of one
+     process at the same UNet batch and within CHUNK_EDIT_MEAN_BOUND of one
+     process at the whole chunk. (c) The step time at 1 and 2 ranks from
+     (b), which one card cannot turn into a speed-up;
  26. distill: `LCMDistiller` on SD15_IP2P_UNET at 512 px, batch 2 (the
      CLI's 8 cut for chip time), 2 steps: finite losses, the fp32 masters
      moved, the bf16 weights equal to the masters rounded, the EMA rule
@@ -284,9 +303,10 @@ Then training (slice 6a), on models of their own:
      (tallied by shape) that no earlier row holds (`new_k1_rows`,
      `new_k2_rows`): the AnySD step at batch 16, its VAE encodes, the
      grid's edit, the LCM request at one row.
-     The kernels line gains a row at each such shape, K1's and K2's
-     backward rows, and on the K1 and K2 rows `launches_train*`,
-     `launches_distill_step`, `launches_lcm_request`.
+     The kernels line gains a row at each such shape (and at each shape of
+     the dp paths), K1's and K2's backward rows, and on the K1 and K2 rows
+     `launches_train*`, `launches_distill_step`, `launches_lcm_request`; the
+     rows at the shapes the dp paths hit gain `launches_dp_*`.
 Then the factory's command line (slice 7a), each run on a zoo of its own:
  28. cli: `cli.main(["run", ...])` at full width (`ZooConfig()`, 512
      canvas, seeded on the card, `--ground-batch 8 --no-filters`) over
@@ -3542,6 +3562,21 @@ def counted(cls, method: str, log: list):
         setattr(cls, method, real)
 
 
+def anysd_batch(cfg, g, dev) -> dict:
+    """An AnySD batch of TRAIN_BATCH rows drawn from `g` on the card: the
+    latents of TRAIN_RES px, 77 text tokens, unit image embeddings, one
+    task a row in turn."""
+    import torch
+    hw = TRAIN_RES // 8
+    return {"edited_latents": torch.randn(TRAIN_BATCH, hw, hw, 4, generator=g, device=dev),
+            "orig_latents": torch.randn(TRAIN_BATCH, hw, hw, 4, generator=g, device=dev),
+            "text_emb": torch.randn(TRAIN_BATCH, 77, cfg.unet.context_dim, generator=g,
+                                    device=dev),
+            "image_embed": torch.nn.functional.normalize(
+                torch.randn(TRAIN_BATCH, cfg.image_embed_dim, generator=g, device=dev), dim=-1),
+            "task_id": torch.arange(TRAIN_BATCH, device=dev) % cfg.num_experts}
+
+
 def group_norms(module) -> int:
     from anyedit_tpu_torch.models.layers import GroupNorm
     return sum(isinstance(m, GroupNorm) for m in module.modules())
@@ -3652,16 +3687,8 @@ def train_phase(dev, ledger: Path, image_root: Path):
 
     # the disconnect check, on the trained adapter and the frozen UNet
     tr, unet, adapter = held["trainer"], held["unet"], held["adapter"]
-    c = tr.cfg
     g = torch.Generator(device=dev).manual_seed(9)
-    hw = TRAIN_RES // 2 ** (len(vae.cfg.block_channels) - 1)
-    batch = {"edited_latents": torch.randn(TRAIN_BATCH, hw, hw, 4, generator=g, device=dev),
-             "orig_latents": torch.randn(TRAIN_BATCH, hw, hw, 4, generator=g, device=dev),
-             "text_emb": torch.randn(TRAIN_BATCH, 77, c.unet.context_dim, generator=g,
-                                     device=dev),
-             "image_embed": torch.nn.functional.normalize(
-                 torch.randn(TRAIN_BATCH, c.image_embed_dim, generator=g, device=dev), dim=-1),
-             "task_id": torch.arange(TRAIN_BATCH, device=dev) % c.num_experts}
+    batch = anysd_batch(tr.cfg, g, dev)
     draws = tr.draw(g, batch)
     draws["p"] = torch.full_like(draws["p"], 0.5)       # no dropout
 
@@ -3843,6 +3870,398 @@ def distill_phase(dev):
             "k2_run": sum((collections.Counter(t) for _, t in tallies), collections.Counter()),
             "lcm_s": lcm_s, "lcm_launches": launches, "lcm_k1": dict(lcm_k1),
             "lcm_k2": dict(lcm_k2)}
+
+# ---- slice 7c: data parallelism ------------------------------------------------
+
+# The dp phase. (a) `torchrun --standalone --nproc_per_node 1` starts this
+# script's `--dp-train` worker, which calls `cli.main(["train", ...])` with the
+# train phase's first run's arguments: under torchrun the command joins a
+# 1-rank NCCL group and runs its group code (the rows, the gradient average,
+# the barriers, rank 0's writes), and its losses equal that run's, made
+# without a group, bit for bit. (b) Two
+# `--dp-rank` workers on the one card over gloo (NCCL refuses two ranks on one
+# device), through the library: the AnySD step at TRAIN_BATCH rows, half a
+# rank, DP_STEPS steps, against rank 0's one process at the whole batch; then
+# the batched IP2P edit of DP_EDIT records at 512 px, split over the ranks.
+# (c) The step time at 1 and 2 ranks from (b). One card cannot show a
+# speed-up: the two ranks share its SMs, and gloo carries the gradients
+# through the host.
+DP_WORLD, DP_STEPS, DP_EDIT, DP_EDIT_STEPS = 2, 2, 4, 10
+DP_DEVICE = "cuda:0"            # the card both gloo ranks share
+DP_TIMEOUT_S = 300
+# Two ranks at 8 rows against one process at 16 run the same math at other
+# GEMM tilings in bf16: the loss within one bf16 rounding (relative 2^-8);
+# each step's gradient, averaged over the ranks, against one process's
+# within the disconnect check's bounds (DISCONNECT_COS, DISCONNECT_REL_L2:
+# bf16 roundings of two forwards through 16 transformer blocks); the
+# adapter's change over the steps (fp32, lr 1e-4) at cosine DP_DTHETA_COS or
+# more against one process's. Adam moves each element by about lr whatever
+# the size of its gradient, so the change is close to lr times the signs of
+# the moments, and an element whose gradient sits near zero may take the
+# other sign at another tiling. A control, rank 0's rows alone without the
+# average, must fail both checks. An H100 read the gradients at cosine
+# 0.99988 / 0.99978 (rel-L2 0.0153 / 0.0209), the change at 0.99771, and the
+# control at 0.637 / 0.610 (rel-L2 0.999 / 0.980) and 0.594.
+DP_LOSS_REL = 2.0 ** -8
+DP_DTHETA_COS = 0.99
+# The split edit against one process running the same UNet batch (2 records
+# a call, the chunk's re-noise handed in): 1 uint8 level; against one process
+# at the whole chunk of 4 (other GEMM tilings, 10 steps): the mean of the
+# chunk phase's batched-edit bound.
+DP_EDIT_LEVELS = 1
+DP_PATHS = {"dp_torchrun": "torchrun --nproc_per_node 1 -m anyedit_tpu_torch train, 2 steps at "
+                           "batch 16, 256 px (the train run's setup)",
+            "dp_step_rank0": "the AnySD step on 2 gloo ranks of one card, rank 0: 2 steps at 8 "
+                             "of 16 rows, 256 px",
+            "dp_step_rank1": "the AnySD step on 2 gloo ranks of one card, rank 1: 2 steps at 8 "
+                             "of 16 rows, 256 px",
+            "dp_edit_rank0": "the batched IP2P edit of 4 records at 512 px, 10 steps, split over "
+                             "2 gloo ranks, rank 0 (the UNet at 2 x 3 rows)",
+            "dp_edit_rank1": "the batched IP2P edit of 4 records at 512 px, 10 steps, split over "
+                             "2 gloo ranks, rank 1 (the UNet at 2 x 3 rows)"}
+
+
+def tallies_json(t1, t2) -> dict:
+    return {"k1": [[list(shape), n] for shape, n in t1.items()],
+            "k2": [[list(shape), silu, dtype, n] for (shape, silu, dtype), n in t2.items()]}
+
+
+def tallies_from_json(d) -> tuple[dict, dict]:
+    return ({tuple(shape): n for shape, n in d["k1"]},
+            {(tuple(shape), silu, dtype): n for shape, silu, dtype, n in d["k2"]})
+
+
+def tensors_sha(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_worker(argv) -> int:
+    """(a), under `torchrun`: `cli.main(argv[1:])`, what `python -m
+    anyedit_tpu_torch` runs, with K1 and K2 counted around each train step
+    and tallied by shape, the group the command joined
+    (`core.dist.from_env`) and the gradient averages its steps ran. Writes
+    JSON to argv[0]."""
+    import io
+    import os
+    import torch
+    from anyedit_tpu_torch import cli
+    from anyedit_tpu_torch.core import dist
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.train import anysd
+    from anyedit_tpu_torch.train.anysd import AnySDTrainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    held, steps, groups, averages, buf = {}, [], [], [], io.StringIO()
+    real_init, real_from_env, real_average = AnySDTrainer.init, dist.from_env, anysd.average
+
+    def init(self, *args, **kwargs):
+        unet, adapter, opt = real_init(self, *args, **kwargs)
+        held.update(unet=unet)
+        return unet, adapter, opt
+
+    def from_env(device="cuda"):
+        group = real_from_env(device)
+        groups.append(None if group is None else [group.backend, group.size, str(group.device)])
+        return group
+
+    def average(grads, loss, group):
+        averages.append(group.size)
+        return real_average(grads, loss, group)
+    AnySDTrainer.init, dist.from_env, anysd.average = init, from_env, average
+    try:
+        flash_nomax.launches = group_norm.launches = 0
+        with counted(AnySDTrainer, "train_step", steps), k1_tally() as t1, k2_tally() as t2, \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv[1:])
+        launches = [flash_nomax.launches, group_norm.launches]
+    finally:
+        AnySDTrainer.init, dist.from_env, anysd.average = real_init, real_from_env, real_average
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_PORT")}
+    res = {"rc": rc, "env": env, "stdout": buf.getvalue(), "launches": launches,
+           "groups": groups, "averages": averages,
+           "step_launches": [list(x[:2]) for x in steps], "step_s": [x[2] for x in steps],
+           "unet_norms": group_norms(held["unet"]), **tallies_json(t1, t2)}
+    Path(argv[0]).write_text(json.dumps(res))
+    return 0
+
+
+def dp_edit_records():
+    """DP_EDIT 512 px records (the second masked) with their seeds."""
+    rng = np.random.default_rng(21)
+    imgs = [rng.integers(0, 255, (512, 512, 3), np.uint8) for _ in range(DP_EDIT)]
+    m = np.zeros((512, 512), np.float32)
+    m[128:384, 160:416] = 1.0
+    instrs = ["make the sky a deep orange", "turn the wall green", "add falling snow",
+              "make it look like a watercolor"]
+    return imgs, instrs, [None, m] + [None] * (DP_EDIT - 2), [11 + i for i in range(DP_EDIT)]
+
+
+def dp_rank_worker(argv) -> int:
+    """(b), rank int(argv[0]) of DP_WORLD on cuda:0 over gloo, meeting at a
+    `file://` rendezvous in argv[1]: DP_STEPS AnySD steps on its rows of the
+    batch with `core.dist` (K1 and K2 counted and tallied); rank 0 then runs
+    the same steps in one process at the whole batch while rank 1 waits.
+    Then the batched IP2P edit split over the ranks, and on rank 0 the two
+    one-process references. Writes JSON to argv[1]/rank{r}.json."""
+    import torch
+    from anyedit_tpu_torch import cli
+    from anyedit_tpu_torch.core import dist
+    from anyedit_tpu_torch.ops.attention import flash_nomax
+    from anyedit_tpu_torch.ops.groupnorm import group_norm
+    from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
+    from anyedit_tpu_torch.train.anysd import AnySDTrainer
+
+    rank, work = int(argv[0]), Path(argv[1])
+    dev = torch.device(DP_DEVICE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = dist.init_group(rank, DP_WORLD, f"file://{work / 'rendezvous'}", dev,
+                            backend="gloo")
+    res = {"rank": rank}
+    try:
+        tr = AnySDTrainer(cli._anysd_configs(False)[0], device=dev)
+        unet, adapter, _ = tr.init(seed=0)
+        p0 = [p.detach().clone() for p in adapter.parameters()]
+        theta0 = torch.cat([q.flatten() for q in p0])
+        batch = anysd_batch(tr.cfg, torch.Generator(device=dev).manual_seed(9), dev)
+        grads, run = {}, [None]
+        real_update = tr.tx.update_
+
+        def update_(params, g, state):
+            """The optimizer, keeping on rank 0 each step's (averaged)
+            gradient under the run's name."""
+            if rank == 0:
+                grads.setdefault(run[0], []).append(
+                    torch.cat([x.float().flatten() for x in g.values()]))
+            return real_update(params, g, state)
+        tr.tx.update_ = update_
+
+        def steps(name, rows, grp):
+            """DP_STEPS train steps from the adapter's start on the batch's
+            `rows`, with the rows of the whole batch's draws -> (losses,
+            step log, the adapter's change)."""
+            run[0] = name
+            with torch.no_grad():
+                for p, q in zip(adapter.parameters(), p0):
+                    p.copy_(q)
+            state, part, log, losses = tr.init_opt(adapter), {
+                k: v[rows] for k, v in batch.items()}, [], []
+            with counted(AnySDTrainer, "train_step", log):
+                for s in range(DP_STEPS):
+                    gen = torch.Generator(device=dev).manual_seed(s)     # (seed 0 << 32) + s
+                    draws = (tr.draw(gen, part, grp) if grp is not None else
+                             {k: v[rows] for k, v in tr.draw(gen, batch).items()})
+                    _, state, loss = tr.train_step(adapter, state, unet, part, draws, group=grp)
+                    losses.append(float(loss))
+            return losses, log, torch.cat([p.detach().flatten() for p in adapter.parameters()]) \
+                - theta0
+
+        def against(a, b) -> dict:
+            return {"cos": cosine(a, b), "rel_l2": float((a - b).norm() / b.norm())}
+
+        rows = dist.rank_rows(TRAIN_BATCH, rank, DP_WORLD)
+        flash_nomax.launches = group_norm.launches = 0
+        with k1_tally() as t1, k2_tally() as t2:
+            losses, log, d_dp = steps("dp", rows, group)
+        res["step"] = {"losses": losses, "step_s": [x[2] for x in log],
+                       "step_launches": [list(x[:2]) for x in log],
+                       "launches": [flash_nomax.launches, group_norm.launches],
+                       "unet_norms": group_norms(unet), "adapter_sha": tensors_sha(
+                           adapter.parameters()), **tallies_json(t1, t2)}
+        dist.barrier(group)
+        if rank == 0:
+            one_losses, one_log, d_one = steps("one", slice(None), None)
+            # the control: this rank's rows alone, the gradient not averaged
+            _, _, d_half = steps("half", rows, None)
+            diff = (d_dp - d_one).abs()
+            res["one"] = {"losses": one_losses, "step_s": [x[2] for x in one_log],
+                          "grads": [against(a, b) for a, b in zip(grads["dp"], grads["one"])],
+                          "control_grads": [against(a, b)
+                                            for a, b in zip(grads["half"], grads["one"])],
+                          "dtheta": against(d_dp, d_one),
+                          "control_dtheta": against(d_half, d_one),
+                          "adapter_max_abs": float(diff.max()),
+                          "adapter_share_1e-5": float((diff <= 1e-5).float().mean())}
+            del d_one, d_half, diff
+        dist.barrier(group)
+        del tr, unet, adapter, p0, theta0, batch, grads, d_dp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        zoo = ModelZoo(ZooConfig(), dev, seed=0)
+        ip2p = zoo.ip2p()
+        imgs, instrs, masks, seeds = dp_edit_records()
+        torch.cuda.synchronize()
+        flash_nomax.launches = group_norm.launches = 0
+        with k1_tally() as e1, k2_tally() as e2:
+            t0 = time.perf_counter()
+            outs = ip2p.batch(imgs, instrs, masks, steps=DP_EDIT_STEPS, seeds=seeds, group=group)
+            torch.cuda.synchronize()
+            edit_s = time.perf_counter() - t0
+        res["edit"] = {"s": edit_s, "launches": [flash_nomax.launches, group_norm.launches],
+                       "n": len(outs), "sha": tensors_sha(torch.from_numpy(o) for o in outs),
+                       **tallies_json(e1, e2)}
+        dist.barrier(group)
+        if rank == 0:
+            c = zoo.cfg
+            lhw = c.canvas.edit_size // c.canvas.latent_down
+            ren = torch.randn((DP_EDIT, lhw, lhw, c.vae.latent_channels), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+            half = DP_EDIT // DP_WORLD
+            same = []
+            for r in range(DP_WORLD):
+                part = slice(r * half, (r + 1) * half)
+                same += ip2p.batch(imgs[part], instrs[part], masks[part], steps=DP_EDIT_STEPS,
+                                   seeds=seeds[part], renoise=ren[part])
+            t0 = time.perf_counter()
+            whole = ip2p.batch(imgs, instrs, masks, steps=DP_EDIT_STEPS, seeds=seeds)
+            torch.cuda.synchronize()
+
+            def dist_(ref):
+                d = [np.abs(a.astype(np.int16) - b.astype(np.int16)) for a, b in zip(outs, ref)]
+                return {"max": int(max(x.max() for x in d)),
+                        "mean": float(np.mean([x.mean() for x in d]))}
+            res["edit_ref"] = {"same_batch": dist_(same), "whole_chunk": dist_(whole),
+                               "whole_s": time.perf_counter() - t0,
+                               "shapes_ok": all(o.shape == (512, 512, 3) and o.dtype == np.uint8
+                                                for o in outs)}
+        dist.barrier(group)
+    finally:
+        dist.destroy(group)
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+DP_WORKERS = {"--dp-train": dp_train_worker, "--dp-rank": dp_rank_worker}
+
+
+def run_procs(cmds, timeout: float) -> None:
+    """Run the commands at once, each in a session of its own; fail as soon
+    as one exits non-zero, or past `timeout`; kill whatever is left."""
+    import os
+    import signal
+
+    procs = [subprocess.Popen(c, start_new_session=True) for c in cmds]
+    try:
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            bad = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            require(not bad, f"a dp worker exited {bad}")
+            require(time.monotonic() < deadline, f"the dp workers ran past {timeout} s")
+            time.sleep(0.5)
+        require(all(p.returncode == 0 for p in procs),
+                f"the dp workers exited {[p.returncode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def dp_phase(dev, ledger: Path, image_root: Path, train_run: dict) -> dict:
+    """(a) and (b) above, in subprocesses (this process joins no group);
+    returns the numbers and each worker path's K1 / K2 tallies by shape."""
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    script = str(Path(__file__).resolve())
+    argv = ["train", "--ledger", str(ledger), "--image-root", str(image_root),
+            "--batch-size", str(TRAIN_BATCH), "--resolution", str(TRAIN_RES),
+            "--checkpoint-dir", str(work / "ckpt"), "--checkpoint-every", "2",
+            "--log-every", "1", "--seed", "0", "--device", str(dev), "--steps", "2",
+            "--val-count", "0"]
+    t0 = time.perf_counter()
+    run_procs([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", script, "--dp-train", str(work / "torchrun.json"),
+                *argv]], DP_TIMEOUT_S)
+    a_s = time.perf_counter() - t0
+    a = json.loads((work / "torchrun.json").read_text())
+    losses = [json.loads(x)["loss"] for x in a["stdout"].splitlines()
+              if x.startswith('{"step"')]
+    from anyedit_tpu_torch.train.checkpoint import TrainCheckpointer
+    saved = TrainCheckpointer(work / "ckpt").all_steps()
+    print(f"dp (a) torchrun, 1 rank: env {a['env']}; the command's group {a['groups']}, "
+          f"gradient averages over {a['averages']} ranks; losses {losses} against the train "
+          f"run's {train_run['losses']}; train steps (K1, K2) {a['step_launches']}, step s "
+          f"{[round(x, 4) for x in a['step_s']]}; checkpoints {saved}; {a_s:.2f} s", flush=True)
+    require(a["rc"] == 0 and a["env"]["WORLD_SIZE"] == "1" and a["env"]["RANK"] == "0",
+            "torchrun started the command as rank 0 of 1, and it exited 0")
+    require(a["groups"] == [["nccl", 1, str(dev)]] and a["averages"] == [1, 1],
+            "the command joined a 1-rank NCCL group and averaged each step's gradients in it")
+    require(losses == train_run["losses"],
+            "the command in a 1-rank NCCL group prints the train run's losses bit for bit")
+    require(a["step_launches"] == [[K1_PER_TRAIN_STEP, a["unet_norms"]]] * 2
+            == [list(x) for x in train_run["step_launches"]],
+            f"K1 {K1_PER_TRAIN_STEP} and K2 {a['unet_norms']} a step under torchrun, as in "
+            "the train run")
+    require(saved == [2], "rank 0 wrote the step-2 checkpoint")
+
+    t0 = time.perf_counter()
+    run_procs([[sys.executable, script, "--dp-rank", str(r), str(work)]
+               for r in range(DP_WORLD)], DP_TIMEOUT_S)
+    b_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    one, ref = ranks[0]["one"], ranks[0]["edit_ref"]
+    st = [r["step"] for r in ranks]
+    loss_rel = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(st[0]["losses"], one["losses"]))
+    print(f"dp (b) 2 gloo ranks on one card: losses {st[0]['losses']} (rank 1 "
+          f"{st[1]['losses']}) against one process's {one['losses']} (rel {loss_rel:.3e}, "
+          f"bound {DP_LOSS_REL:.3e}); adapter sha equal "
+          f"{st[0]['adapter_sha'] == st[1]['adapter_sha']}; each step's averaged gradient "
+          f"against one process's {one['grads']} (bounds cos {DISCONNECT_COS}, rel-L2 "
+          f"{DISCONNECT_REL_L2}), the control's (rank 0's rows alone) {one['control_grads']}; "
+          f"the adapter's change against one process's {one['dtheta']} (bound cos "
+          f"{DP_DTHETA_COS}), the control's {one['control_dtheta']}; the adapter max abs "
+          f"{one['adapter_max_abs']:.3e}, {one['adapter_share_1e-5'] * 100:.3f} % within 1e-5; "
+          f"step s {st[0]['step_s']} and {st[1]['step_s']} at 2 ranks, {one['step_s']} at 1; "
+          f"train steps (K1, K2) {[s['step_launches'] for s in st]}; the "
+          f"split edit: {ranks[0]['edit']['n']} records, {ranks[0]['edit']['s']:.3f} s (one "
+          f"process {ref['whole_s']:.3f} s), against one process at the same UNet batch "
+          f"{ref['same_batch']}, at the whole chunk {ref['whole_chunk']}, K1 / K2 "
+          f"{[r['edit']['launches'] for r in ranks]}; {b_s:.2f} s", flush=True)
+
+    def grads_hold(gs) -> bool:
+        return all(g["cos"] >= DISCONNECT_COS and g["rel_l2"] <= DISCONNECT_REL_L2 for g in gs)
+    require(st[0]["losses"] == st[1]["losses"], "both ranks print the same all-reduced loss")
+    require(all(np.isfinite(st[0]["losses"])) and loss_rel <= DP_LOSS_REL,
+            "the 2-rank loss within DP_LOSS_REL of one process's")
+    require(st[0]["adapter_sha"] == st[1]["adapter_sha"],
+            "the adapter equal on both ranks, bit for bit")
+    require(len(one["grads"]) == DP_STEPS and grads_hold(one["grads"]),
+            "every step's 2-rank averaged gradient within the disconnect bounds of one "
+            "process's")
+    require(one["dtheta"]["cos"] >= DP_DTHETA_COS,
+            "the 2-rank adapter's change within DP_DTHETA_COS of one process's")
+    require(not grads_hold(one["control_grads"]) and one["control_dtheta"]["cos"] < DP_DTHETA_COS,
+            "the control (one rank's rows, not averaged) fails both checks")
+    for s in st:
+        require(s["step_launches"] == [[K1_PER_TRAIN_STEP, s["unet_norms"]]] * DP_STEPS,
+                f"K1 {K1_PER_TRAIN_STEP} and K2 {s['unet_norms']} a step on each rank")
+    require(all(r["edit"]["n"] == DP_EDIT for r in ranks) and ref["shapes_ok"]
+            and ranks[0]["edit"]["sha"] == ranks[1]["edit"]["sha"],
+            "every rank returns all the records, the same bytes")
+    require(all(r["edit"]["launches"][0] > 0 and r["edit"]["launches"][1] > 0 for r in ranks),
+            "each rank's share of the edit launched K1 and K2")
+    require(ref["same_batch"]["max"] <= DP_EDIT_LEVELS,
+            "the split edit within DP_EDIT_LEVELS of one process at the same UNet batch")
+    require(ref["whole_chunk"]["mean"] <= CHUNK_EDIT_MEAN_BOUND,
+            "the split edit within the batched-edit mean bound of one process's whole chunk")
+    one_ms, dp_ms = one["step_s"][-1] * 1e3, max(s["step_s"][-1] for s in st) * 1e3
+    tallies = {"dp_torchrun": tallies_from_json(a)}
+    for r in ranks:
+        tallies[f"dp_step_rank{r['rank']}"] = tallies_from_json(r["step"])
+        tallies[f"dp_edit_rank{r['rank']}"] = tallies_from_json(r["edit"])
+    shutil.rmtree(work)
+    return {"one_step_ms": one_ms, "dp_step_ms": dp_ms, "one_step_s": one["step_s"],
+            "dp_step_s": [s["step_s"] for s in st], "torchrun_s": a_s, "ranks_s": b_s,
+            "loss_rel": loss_rel, "edit": ref, "edit_s": ranks[0]["edit"]["s"],
+            "k1": {p: t[0] for p, t in tallies.items()},
+            "k2": {p: t[1] for p, t in tallies.items()}}
+
 
 # ---- slice 7a: the factory's command line ---------------------------------------
 
@@ -4585,19 +5004,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # data parallelism (slice 7c), in processes of its own
+    with phase("dp"):
+        dpx = dp_phase(dev, keep_root / "ungated" / "ledger.jsonl", keep_root / "images",
+                       train_runs["train"])
+        print(f"{card_line}: AnySD step at batch {TRAIN_BATCH}, {TRAIN_RES} px: 1 rank "
+              f"{dpx['one_step_ms']:.1f} ms, 2 gloo ranks on this one card at "
+              f"{TRAIN_BATCH // DP_WORLD} rows each {dpx['dp_step_ms']:.1f} ms a step (the "
+              f"second step, host clock; one card shows no speed-up: the ranks share its SMs "
+              f"and gloo carries the gradients through the host); the edit of {DP_EDIT} "
+              f"records split over 2 ranks {dpx['edit_s']:.3f} s", flush=True)
+
     with phase("distill"):
         dx = distill_phase(dev)
         print(f"{card_line}: distillation step at batch {DISTILL_BATCH}, {DISTILL_RES} px "
               f"{np.median(dx['step_s']) * 1e3:.1f} ms, peak {dx['peak_gib']:.2f} GiB; LCM "
               f"request ({LCM_STEPS} steps) {dx['lcm_s']:.3f} s", flush=True)
 
-    # K1 and K2 at every shape the training paths launched them that no
-    # earlier row holds: the AnySD step at batch 16 and its VAE encodes, the
-    # validation grid's edit, the LCM request at one row
+    # K1 and K2 at every shape the training and dp paths launched them that
+    # no earlier row holds: the AnySD step at batch 16 and its VAE encodes,
+    # the validation grid's edit, the LCM request at one row, the 2-rank
+    # step at 8 rows, the split edit's UNet at 2 x 3 rows
     k1_paths = {p: r["k1_by_shape"] for p, r in train_runs.items()}
-    k1_paths.update(distill=dict(dx["k1_run"]), lcm_request=dx["lcm_k1"])
+    k1_paths.update(distill=dict(dx["k1_run"]), lcm_request=dx["lcm_k1"], **dpx["k1"])
     k2_paths = {p: r["k2_by_shape"] for p, r in train_runs.items()}
-    k2_paths.update(distill=dict(dx["k2_run"]), lcm_request=dx["lcm_k2"])
+    k2_paths.update(distill=dict(dx["k2_run"]), lcm_request=dx["lcm_k2"], **dpx["k2"])
     with phase("train shapes"):
         train_k1_rows = new_k1_rows(dev, k1_paths, set(K1_SHAPES) | {s for s, _ in SLICE_K1})
         held |= {key for *_, key in visual_rows}
@@ -4710,7 +5141,7 @@ def main() -> int:
         for tag, r, path, per_path, key in new_rows:
             row = entry(name, *sources[name], per_path[path], [(tag, r)])
             row.update({f"launches_{p}": n for p, n in per_path.items() if p != path})
-            row["path"] = TRAIN_PATHS[path]
+            row["path"] = {**TRAIN_PATHS, **DP_PATHS}[path]
             kernels.append(row)
             (k2_by_key if name == "group_norm" else k1_by_shape)[key] = row
     for key, per_path in train_seen.items():
@@ -4773,4 +5204,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] in DP_WORKERS:
+        sys.exit(DP_WORKERS[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

@@ -211,3 +211,27 @@ def test_gdino_structure(port):
                  "feat_map.weight", "transformer.tgt_embed.weight",
                  "transformer.level_embed"):
         assert want in keys, want
+
+
+def test_gdino_extra_level_matches_on_odd_map():
+    """TINY_GDINO with one more level than the backbone's maps, so the last
+    level is the stride-2 3x3 conv of the last map, on 40 px images whose
+    last map is 5x5: an odd side, where the port's (1, 1) padding and the
+    JAX module's "SAME" agree. Logits 1e-3, boxes 1e-4 max-abs, as above."""
+    jcfg = dataclasses.replace(JAX_GDINO, num_levels=3)
+    tcfg = dataclasses.replace(PORT_GDINO, num_levels=3)
+    m = jgdino.GroundingDINO(jcfg)
+    params = random_flax_params(m, (jnp.zeros((1, 40, 40, 3)), jnp.zeros((1, 16), jnp.int32),
+                                    jnp.ones((1, 16), bool)), 6)
+    port = tgdino.GroundingDINO(tcfg)
+    port.load_state_dict(bridge.gdino_state_dict(params), strict=True)
+    px = np.random.default_rng(12).standard_normal((2, 40, 40, 3)).astype(np.float32)
+    jl, jb = jax.jit(m.apply)(params, jnp.asarray(px), jnp.asarray(IDS, jnp.int32),
+                              jnp.asarray(MASK))
+    with torch.no_grad():
+        levels = port.eval().vision(T(px))
+        tl, tb = port(T(px), T(IDS), T(MASK))
+    assert [tuple(x.shape[2:]) for x in levels] == [(10, 10), (5, 5), (3, 3)]
+    keep = MASK[:, None, :].repeat(tl.shape[1], 1)
+    assert np.abs(tl.numpy()[keep] - np.asarray(jl)[keep]).max() <= 1e-3
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=1e-4, rtol=0)

@@ -46,9 +46,10 @@ def params():
 def test_port_imports_no_jax():
     """Importing the port and every submodule (the executor, the filters,
     T5, BLIP-2, LaMa, the samplers, the local, geometry and outpainting
-    edits, the MMDiT, the flow sampler and UltraEdit, the ledger and rng
-    among them), `chip_smoke.py` and the port's benches loads neither jax,
-    flax nor anyedit_tpu, and no import statement in them names one."""
+    edits, the MMDiT, the flow sampler and UltraEdit, the ledger and rng,
+    and `core.dist` among them), `chip_smoke.py` and the port's benches loads
+    neither jax, flax nor anyedit_tpu, and no import statement in them names
+    one; no import starts a process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import anyedit_tpu_torch as p\n"
@@ -66,8 +67,11 @@ def test_port_imports_no_jax():
         "          'models.blip2', 'core.ledger', 'core.rng', 'core.png',\n"
         "          'models.lama', 'diffusion.sampling', 'edits.local',\n"
         "          'edits.implicit', 'edits.geometry', 'edits.outpainting',\n"
-        "          'models.mmdit', 'schedulers.flow', 'diffusion.ultraedit'):\n"
-        "    assert 'anyedit_tpu_torch.' + m in sys.modules, m\n")
+        "          'models.mmdit', 'schedulers.flow', 'diffusion.ultraedit',\n"
+        "          'core.dist'):\n"
+        "    assert 'anyedit_tpu_torch.' + m in sys.modules, m\n"
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -213,15 +213,35 @@ def _tiny_gdino(tf):
         decoder_n_points=2, max_text_len=16))
 
 
+def _tiny_gdino_extra_level(tf):
+    """Three Swin stages and four feature levels, so that one level is the
+    stride-2 3x3 conv of the last backbone map; the verifier's probe (16 x
+    patch = 64 px) gives that map 4x4, an even side, where Flax "SAME" would
+    pad (0, 1) and the official model pads (1, 1)."""
+    sw = tf.SwinConfig(image_size=64, patch_size=4, embed_dim=16, depths=[1, 1, 1],
+                       num_heads=[2, 2, 2], window_size=4,
+                       out_features=["stage1", "stage2", "stage3"])
+    bt = tf.BertConfig(vocab_size=1100, hidden_size=32, num_hidden_layers=1,
+                       num_attention_heads=2, intermediate_size=128, max_position_embeddings=32,
+                       type_vocab_size=2)
+    return tf.GroundingDinoForObjectDetection(tf.GroundingDinoConfig(
+        backbone_config=sw, text_config=bt, d_model=32, encoder_layers=1, decoder_layers=1,
+        num_queries=12, encoder_attention_heads=2, decoder_attention_heads=2,
+        encoder_ffn_dim=64, decoder_ffn_dim=64, num_feature_levels=4, encoder_n_points=2,
+        decoder_n_points=2, max_text_len=16))
+
+
 @pytest.mark.parametrize("name,build", [("clip_vision", _tiny_clip_vision), ("t5", _tiny_t5),
                                         ("dinov2", _tiny_dinov2), ("depth", _tiny_depth),
-                                        ("sam", _tiny_sam), ("gdino", _tiny_gdino)])
+                                        ("sam", _tiny_sam), ("gdino", _tiny_gdino),
+                                        ("gdino", _tiny_gdino_extra_level)])
 def test_verify_family_parity(tmp_path, name, build):
     """Each family's config derived from config.json and its plan (the HF
     layouts of Depth-Anything, DINOv2, SAM and GroundingDINO, T5's shared
     embedding) within the JAX tolerance. SAM's checkpoint as
     `save_pretrained` writes it holds the tied Fourier matrix once, as
-    `shared_image_embedding.positional_embedding`."""
+    `shared_image_embedding.positional_embedding`. GroundingDINO also at 3
+    stages and 4 levels with an even last map (the extra level's padding)."""
     tf = pytest.importorskip("transformers")
     torch.manual_seed(1)
     d = _save(tmp_path, build(tf), f"{name}_ckpt")
