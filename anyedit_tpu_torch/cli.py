@@ -717,7 +717,9 @@ def main(argv=None, params=None) -> int:
                          "<slot>.safetensors (no silent random init)")
     pr.add_argument("--seed", type=int, default=0)
     pr.add_argument("--profile-trace", default=None,
-                    help="write a torch.profiler trace here")
+                    help="write a torch.profiler trace here (trace.json: the kernels and "
+                         "host ops, and the program's layer spans: executor stages, "
+                         "chunk, record, ground, ip2p, unet, vae, scorers)")
     pr.add_argument("--tiny", action="store_true",
                     help="tiny random-weight models (hermetic smoke runs)")
     pr.add_argument("--ground-batch", type=int, default=8,

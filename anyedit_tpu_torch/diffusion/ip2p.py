@@ -7,7 +7,8 @@ batch order [text+image, image only, neither]:
 The JAX package draws its start latents and re-noise noise from a PRNG key
 inside the function; here both are inputs (drawn from a `torch.Generator`
 when absent), because jax.random and torch give different numbers for one
-seed and the parity tests hand both sides the same noise.
+seed and the parity tests hand both sides the same noise. Each UNet call
+is a `core.trace` span, "unet" (layer "editor", attrs rows and step).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from anyedit_tpu_torch.core import trace
 from anyedit_tpu_torch.schedulers import (
     NoiseSchedule, add_noise, ddim_init, ddim_step,
 )
@@ -62,7 +64,8 @@ def ip2p_edit(eps_fn: EpsFn,
     for i in range(num_steps):
         t = st.timesteps[i]
         unet_in = torch.cat([torch.cat([lat, lat, lat], dim=0), img_cond], dim=-1)
-        e_full, e_img, e_unc = eps_fn(unet_in, t.expand(3 * b), ctx).chunk(3, dim=0)
+        with trace.span("unet", "editor", rows=3 * b, step=i):
+            e_full, e_img, e_unc = eps_fn(unet_in, t.expand(3 * b), ctx).chunk(3, dim=0)
         eps = e_unc + guidance_scale * (e_full - e_img) \
             + image_guidance_scale * (e_img - e_unc)
         lat = ddim_step(ns, st, i, eps, lat)

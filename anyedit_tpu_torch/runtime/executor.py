@@ -3,8 +3,14 @@
 Flow per record: pre_filter -> edit pipeline -> post_filter -> ledger, with
   * one resident Toolbox (each model built once and shared),
   * shard/resume through `RunLedger` (idempotent restart),
-  * per-stage wall-clock counters (`StageTimer`),
-  * an optional `torch.profiler` trace around the run.
+  * per-stage counts and host (enqueue) seconds (`StageTimer`), each stage
+    a `core.trace` span of layer "executor", beside the spans `chunk`,
+    `record` (the parents, keyed by chunk index and record key),
+    `load_wait` (the main thread waiting on the loader) and `write` (a
+    success's PNGs and ledger mark); while a profiler records, the spans
+    hold device-event times (`core/trace.py`),
+  * an optional `torch.profiler` trace around the run, which shows those
+    spans and the zoo's beside the kernels.
 
 Errors are contained per record and recorded with their reasons. A memo in
 front of the grounder serves repeated (image, phrase, mode) calls: the
@@ -28,7 +34,6 @@ import contextlib
 import dataclasses
 import re
 import sys
-import time
 import traceback
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +43,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from anyedit_tpu_torch.core import trace
 from anyedit_tpu_torch.core.ledger import RunLedger, Shard
 from anyedit_tpu_torch.core.png import write_png
 from anyedit_tpu_torch.core.rng import host_rng
@@ -51,19 +57,24 @@ from anyedit_tpu_torch.filters.scorers import clip_score, directional_clip_score
 
 
 class StageTimer:
-    """Per-stage wall-clock accounting."""
+    """Per-stage counts and host seconds. Each stage is a `core.trace` span
+    of layer "executor". The host seconds are enqueue time: CUDA calls
+    return before the device has run them, so device work that a stage
+    leaves queued runs on in the next one. The device side of each stage is
+    in the trace's records, while a profiler records."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    def stage(self, name: str, key=None):
+        s = trace.span(name, "executor", key=key)
         try:
-            yield
+            with s:
+                yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
+            self.totals[name] += s.host_s
             self.counts[name] += 1
 
     def report(self) -> dict[str, dict[str, float]]:
@@ -171,7 +182,8 @@ def _fell_back(stage: str, e: Exception) -> None:
 @contextlib.contextmanager
 def _profile(trace_dir: Optional[str]):
     """A `torch.profiler` trace of the block (the card's kernels too, where
-    there is one) written to `trace_dir/trace.json`; nothing without a dir."""
+    there is one, and the program's `core.trace` spans as named ranges)
+    written to `trace_dir/trace.json`; nothing without a dir."""
     if not trace_dir:
         yield
         return
@@ -201,6 +213,7 @@ class FactoryExecutor:
         self._ccache: dict = {}    # chunk: id(image) -> batched CLIP image embedding
         self._ecache: dict = {}    # chunk: batched edits by (id(image), instruction, knobs, seed)
         self._gmemo: dict = {}     # grounding memo (record- or chunk-scoped)
+        self._chunks = 0           # chunks run, the key of a chunk's spans
         if self.tb.ground is not None:
             self._wrap_ground()
         if self.tb.ip2p is not None and hasattr(self.tb.ip2p, "_real"):
@@ -377,10 +390,11 @@ class FactoryExecutor:
         return report
 
     def _run_contained(self, rec, load_image, ledger, out_root, **kw) -> None:
-        try:
-            self._run_one(rec, load_image, ledger, out_root, **kw)
-        except Exception as e:  # contain per record, keep the reason
-            _mark_error(ledger, rec, e)
+        with trace.span("record", "executor", key=rec.key()):
+            try:
+                self._run_one(rec, load_image, ledger, out_root, **kw)
+            except Exception as e:  # contain per record, keep the reason
+                _mark_error(ledger, rec, e)
 
     def _run_chunks(self, pending, load_image, ledger, out_root, bs: int) -> None:
         """Chunks of `bs` records, double-buffered: the loader thread decodes
@@ -391,10 +405,13 @@ class FactoryExecutor:
         with ThreadPoolExecutor(max_workers=1) as loader:
             nxt = loader.submit(_load_chunk, chunks[0], load_image)
             for ci, chunk in enumerate(chunks):
-                loaded = nxt.result()
+                with trace.span("load_wait", "executor", key=self._chunks):
+                    loaded = nxt.result()
                 if ci + 1 < len(chunks):
                     nxt = loader.submit(_load_chunk, chunks[ci + 1], load_image)
-                self._run_chunk(chunk, loaded, ledger, out_root)
+                with trace.span("chunk", "executor", key=self._chunks):
+                    self._run_chunk(chunk, loaded, ledger, out_root)
+                self._chunks += 1
 
     def _run_chunk(self, chunk, preloaded: dict, ledger, out_root) -> None:
         """Batch the chunk's first groundings and CLIP embeddings, pre-gate
@@ -444,7 +461,7 @@ class FactoryExecutor:
                 if rec.key() not in loaded:
                     continue
                 try:
-                    with self.timer.stage("pre_filter"):
+                    with self.timer.stage("pre_filter", key=rec.key()):
                         pre_ok[rec.key()] = self._pre_gate(rec, loaded[rec.key()])
                 except Exception as e:
                     _mark_error(ledger, rec, e)
@@ -543,6 +560,13 @@ class FactoryExecutor:
                             {"stage": "post", "scores": dataclasses.asdict(sc)})
                 return
 
+        with trace.span("write", "executor"):
+            self._write(rec, outcome, ledger, out_root)
+
+    def _write(self, rec: InstructionRecord, outcome: EditOutcome, ledger: RunLedger,
+               out_root: Path) -> None:
+        """A success's PNGs (edited frame, input, mask, visual condition) and
+        its ledger mark."""
         payload = {}
         if self.cfg.save_images and outcome.edited is not None:
             stem = Path(rec.image_file or rec.key().replace("/", "_")).stem

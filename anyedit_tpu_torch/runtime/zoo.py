@@ -122,6 +122,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from anyedit_tpu_torch.core import trace
 from anyedit_tpu_torch.core.config import CanvasConfig
 from anyedit_tpu_torch.core.dist import Group, all_gather_objects, rank_rows
 from anyedit_tpu_torch.diffusion import flux_sample, ip2p_edit, sample_inpaint, ultraedit_edit
@@ -609,19 +610,22 @@ class ModelZoo:
         """(B, h, w, C) scaled latents of a list of (H, W, 3) uint8 images:
         lanczos resize to the canvas, [-1, 1], one VAE encode in bf16."""
         size = self.cfg.canvas.edit_size
-        px = torch.stack([normalize_to_unit(resize_image(
-            torch.as_tensor(im, device=self.device).float(), size, size, "lanczos"))
-            for im in images])
-        return self._vae_named(vae).encode(px.to(torch.bfloat16))[0] \
-            * self._vae_cfg(vae).scaling_factor
+        with trace.span("vae_encode", "editor"):
+            px = torch.stack([normalize_to_unit(resize_image(
+                torch.as_tensor(im, device=self.device).float(), size, size, "lanczos"))
+                for im in images])
+            return self._vae_named(vae).encode(px.to(torch.bfloat16))[0] \
+                * self._vae_cfg(vae).scaling_factor
 
     def _from_latents(self, lat: torch.Tensor, hws, vae: str = "vae") -> list[np.ndarray]:
         """One VAE decode of (B, h, w, C) latents -> B uint8 images, each
         lanczos-resized to its (H, W) of `hws`."""
         scaling = self._vae_cfg(vae).scaling_factor
-        imgs = self._vae_named(vae).decode((lat / scaling).to(torch.bfloat16))
-        return [to_u8(resize_image(denormalize_to_u8(im).float(), h, w, "lanczos")).cpu().numpy()
-                for im, (h, w) in zip(imgs, hws)]
+        with trace.span("vae_decode", "editor"):
+            imgs = self._vae_named(vae).decode((lat / scaling).to(torch.bfloat16))
+            return [to_u8(resize_image(denormalize_to_u8(im).float(), h, w,
+                                       "lanczos")).cpu().numpy()
+                    for im, (h, w) in zip(imgs, hws)]
 
     def _latent_mask(self, mask01, threshold: float) -> torch.Tensor:
         """(h, w, 1) {0, 1} fp32: the (H, W) mask resized bilinear to the
@@ -692,14 +696,15 @@ class ModelZoo:
             def ground(image_u8, phrase: str, mode: str = "merge",
                        count_k: int | None = None):
                 """-> GroundingResult on the zoo's device, or None."""
-                pixels, ids, mask, span = self.detector_inputs(image_u8, phrase)
-                logits, boxes = gd(pixels, ids, mask)
+                with trace.span("ground", "grounding"):
+                    pixels, ids, mask, span = self.detector_inputs(image_u8, phrase)
+                    logits, boxes = gd(pixels, ids, mask)
 
-                def sam_embed():
-                    sam_px, scale = self.sam_inputs(image_u8)
-                    return sam.encode(sam_px), scale
-                return finish(logits[0], boxes[0], span, image_u8.shape[:2], sam_embed,
-                              mode, count_k)
+                    def sam_embed():
+                        sam_px, scale = self.sam_inputs(image_u8)
+                        return sam.encode(sam_px), scale
+                    return finish(logits[0], boxes[0], span, image_u8.shape[:2], sam_embed,
+                                  mode, count_k)
 
             @torch.inference_mode()
             def ground_batch(images, phrases, modes=None, count_ks=None):
@@ -707,19 +712,20 @@ class ModelZoo:
                 records' pixels and ids, ONE SAM encode over their SAM pixels,
                 then each record's tail with its own mode and count_k. No
                 padding: the batch is the list."""
-                n = len(images)
-                if len(phrases) != n:
-                    raise ValueError(f"{n} images, {len(phrases)} phrases")
-                modes = modes or ["merge"] * n
-                count_ks = count_ks or [None] * n
-                det = [self.detector_inputs(im, ph) for im, ph in zip(images, phrases)]
-                logits, boxes = gd(*(torch.cat([d[i] for d in det]) for i in range(3)))
-                sam_in = [self.sam_inputs(im) for im in images]
-                embs = sam.encode(torch.cat([px for px, _ in sam_in]))
-                return [finish(logits[i], boxes[i], det[i][3], images[i].shape[:2],
-                               lambda i=i: (embs[i:i + 1], sam_in[i][1]),
-                               modes[i], count_ks[i])
-                        for i in range(n)]
+                with trace.span("ground", "grounding"):
+                    n = len(images)
+                    if len(phrases) != n:
+                        raise ValueError(f"{n} images, {len(phrases)} phrases")
+                    modes = modes or ["merge"] * n
+                    count_ks = count_ks or [None] * n
+                    det = [self.detector_inputs(im, ph) for im, ph in zip(images, phrases)]
+                    logits, boxes = gd(*(torch.cat([d[i] for d in det]) for i in range(3)))
+                    sam_in = [self.sam_inputs(im) for im in images]
+                    embs = sam.encode(torch.cat([px for px, _ in sam_in]))
+                    return [finish(logits[i], boxes[i], det[i][3], images[i].shape[:2],
+                                   lambda i=i: (embs[i:i + 1], sam_in[i][1]),
+                                   modes[i], count_ks[i])
+                            for i in range(n)]
 
             ground.batch = ground_batch
             return ground
@@ -763,17 +769,21 @@ class ModelZoo:
 
             @torch.inference_mode()
             def clip_image(image_u8):
-                return vis(self._pixels(image_u8, c.vision.image_size))[1]
+                with trace.span("clip_image", "scorers"):
+                    return vis(self._pixels(image_u8, c.vision.image_size))[1]
 
             @torch.inference_mode()
             def clip_image_batch(images):
-                z = vis(torch.cat([self._pixels(im, c.vision.image_size) for im in images]))[1]
-                return [z[i:i + 1] for i in range(len(images))]
+                with trace.span("clip_image", "scorers"):
+                    z = vis(torch.cat([self._pixels(im, c.vision.image_size)
+                                       for im in images]))[1]
+                    return [z[i:i + 1] for i in range(len(images))]
 
             @torch.inference_mode()
             def clip_text(text: str):
-                ids = torch.from_numpy(self._clip_ids(text, c.text.max_len))
-                return tm(ids.to(self.device))
+                with trace.span("clip_text", "scorers"):
+                    ids = torch.from_numpy(self._clip_ids(text, c.text.max_len))
+                    return tm(ids.to(self.device))
             clip_image.batch = clip_image_batch
             return clip_image, clip_text
         return self._get("clip_towers", build)
@@ -787,7 +797,8 @@ class ModelZoo:
 
             @torch.inference_mode()
             def score(image_u8) -> float:
-                return float(mlp(clip_image(image_u8))[0])
+                with trace.span("aesthetic", "scorers"):
+                    return float(mlp(clip_image(image_u8))[0])
             return score
         return self._get("aesthetic", build)
 
@@ -815,7 +826,8 @@ class ModelZoo:
                 return vqa(toks, ids, ids != 0)
 
             def ask(image_u8, question: str) -> bool:
-                return bool(yes_no(logits(image_u8, question), yes_id, no_id)[0])
+                with trace.span("vqa", "scorers"):
+                    return bool(yes_no(logits(image_u8, question), yes_id, no_id)[0])
             ask.logits = logits
             ask.yes_no_ids = (yes_id, no_id)
             return ask
@@ -1002,16 +1014,17 @@ class ModelZoo:
                 (1, size/down, size/down, latent channels)). With
                 `lcm_steps`, `renoise` is the consistency sampler's
                 lcm_steps - 1 re-noise draws, stacked on a leading axis."""
-                lat_in = self._to_latents([image_u8])
-                m = None if mask01 is None else self._latent_mask(mask01, 0.5)[None]
-                gen = torch.Generator(device=dev).manual_seed(seed)
-                if init_latents is None:
-                    init_latents = torch.randn(lat_in.shape, generator=gen, device=dev)
-                if renoise is None:
-                    renoise = draw_renoise(lat_in.shape, gen)
-                out = run(lat_in, text(instruction).to(torch.bfloat16), m, init_latents,
-                          renoise.to(dev), steps, s_txt, s_img)
-                return self._from_latents(out, [image_u8.shape[:2]])[0]
+                with trace.span("ip2p", "editor"):
+                    lat_in = self._to_latents([image_u8])
+                    m = None if mask01 is None else self._latent_mask(mask01, 0.5)[None]
+                    gen = torch.Generator(device=dev).manual_seed(seed)
+                    if init_latents is None:
+                        init_latents = torch.randn(lat_in.shape, generator=gen, device=dev)
+                    if renoise is None:
+                        renoise = draw_renoise(lat_in.shape, gen)
+                    out = run(lat_in, text(instruction).to(torch.bfloat16), m, init_latents,
+                              renoise.to(dev), steps, s_txt, s_img)
+                    return self._from_latents(out, [image_u8.shape[:2]])[0]
 
             @torch.inference_mode()
             def edit_batch(images, instructions, masks=None, steps: int = 50,
@@ -1041,47 +1054,49 @@ class ModelZoo:
                 chunk's (the rank keeps its rows), so every record equals
                 one process's at the rounded chunk. The uint8 outputs are
                 gathered, and every rank returns the whole list in order."""
-                n = len(images)
-                if len(instructions) != n:
-                    raise ValueError(f"{n} images, {len(instructions)} instructions")
-                masks = list(masks) if masks is not None else [None] * n
-                seeds = list(seeds) if seeds is not None else list(range(n))
-                dp, rank = (1, 0) if group is None else (group.size, group.rank)
-                # the JAX `bkt += (-bkt) % ndp`
-                bucket = c.edit_batch_bucket + (-c.edit_batch_bucket) % dp
-                out: list[tuple[int, np.ndarray]] = []
-                for s0 in range(0, n, bucket):
-                    whole = slice(s0, min(s0 + bucket, n))
-                    sub = rank_rows(whole.stop - s0, rank, dp)
-                    part = slice(s0 + sub.start, s0 + sub.stop)
-                    if part.start == part.stop:
-                        continue            # no rows of this chunk on this rank
-                    imgs = images[part]
-                    lat = self._to_latents(imgs)
-                    cond = torch.cat([text(t) for t in instructions[part]]).to(torch.bfloat16)
-                    gens = [torch.Generator(device=dev).manual_seed(sd) for sd in seeds[part]]
-                    one = (1,) + lat.shape[1:]
-                    init = init_latents[part] if init_latents is not None else torch.cat([
-                        torch.randn(one, device=dev, generator=g) for g in gens])
-                    mask = ren = None
-                    if c.lcm_steps > 0:
-                        # each record's re-noise draws, as `edit` draws them
-                        ren = renoise[:, part].to(dev) if renoise is not None else torch.cat(
-                            [draw_renoise(one, g) for g in gens], dim=1)
-                    if any(m is not None for m in masks[whole]):
-                        ones = torch.ones(lat.shape[1:3] + (1,), device=dev)
-                        mask = torch.stack([ones if m is None else self._latent_mask(m, 0.5)
-                                            for m in masks[part]])
-                        if c.lcm_steps == 0:
-                            # the whole chunk's draw; this rank's rows of it
-                            ren = renoise[part].to(dev) if renoise is not None else torch.randn(
-                                (whole.stop - s0,) + lat.shape[1:], device=dev,
-                                generator=torch.Generator(device=dev).manual_seed(0))[sub]
-                    lat = run(lat, cond, mask, init, ren, steps, s_txt, s_img)
-                    out += enumerate(self._from_latents(lat, [im.shape[:2] for im in imgs]),
-                                     start=part.start)
-                gathered = [x for got in all_gather_objects(out, group) for x in got]
-                return [img for _, img in sorted(gathered, key=lambda x: x[0])]
+                with trace.span("ip2p", "editor"):
+                    n = len(images)
+                    if len(instructions) != n:
+                        raise ValueError(f"{n} images, {len(instructions)} instructions")
+                    masks = list(masks) if masks is not None else [None] * n
+                    seeds = list(seeds) if seeds is not None else list(range(n))
+                    dp, rank = (1, 0) if group is None else (group.size, group.rank)
+                    # the JAX `bkt += (-bkt) % ndp`
+                    bucket = c.edit_batch_bucket + (-c.edit_batch_bucket) % dp
+                    out: list[tuple[int, np.ndarray]] = []
+                    for s0 in range(0, n, bucket):
+                        whole = slice(s0, min(s0 + bucket, n))
+                        sub = rank_rows(whole.stop - s0, rank, dp)
+                        part = slice(s0 + sub.start, s0 + sub.stop)
+                        if part.start == part.stop:
+                            continue            # no rows of this chunk on this rank
+                        imgs = images[part]
+                        lat = self._to_latents(imgs)
+                        cond = torch.cat([text(t) for t in instructions[part]]).to(torch.bfloat16)
+                        gens = [torch.Generator(device=dev).manual_seed(sd) for sd in seeds[part]]
+                        one = (1,) + lat.shape[1:]
+                        init = init_latents[part] if init_latents is not None else torch.cat([
+                            torch.randn(one, device=dev, generator=g) for g in gens])
+                        mask = ren = None
+                        if c.lcm_steps > 0:
+                            # each record's re-noise draws, as `edit` draws them
+                            ren = renoise[:, part].to(dev) if renoise is not None else torch.cat(
+                                [draw_renoise(one, g) for g in gens], dim=1)
+                        if any(m is not None for m in masks[whole]):
+                            ones = torch.ones(lat.shape[1:3] + (1,), device=dev)
+                            mask = torch.stack([ones if m is None else self._latent_mask(m, 0.5)
+                                                for m in masks[part]])
+                            if c.lcm_steps == 0:
+                                # the whole chunk's draw; this rank's rows of it
+                                ren = renoise[part].to(dev) if renoise is not None else \
+                                    torch.randn((whole.stop - s0,) + lat.shape[1:], device=dev,
+                                                generator=torch.Generator(
+                                                    device=dev).manual_seed(0))[sub]
+                        lat = run(lat, cond, mask, init, ren, steps, s_txt, s_img)
+                        out += enumerate(self._from_latents(lat, [im.shape[:2] for im in imgs]),
+                                         start=part.start)
+                    gathered = [x for got in all_gather_objects(out, group) for x in got]
+                    return [img for _, img in sorted(gathered, key=lambda x: x[0])]
 
             edit.batch = edit_batch
             return edit
