@@ -23,6 +23,7 @@ from torch import nn
 
 from anyedit_tpu_torch.ops.attention import attention as attention_op
 from anyedit_tpu_torch.ops.groupnorm import group_norm
+from anyedit_tpu_torch.ops.layernorm import layer_norm
 from anyedit_tpu_torch.ops.quant import QuantConv, make_dense
 
 
@@ -116,7 +117,8 @@ class GroupNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """fp32-stat LayerNorm over the last dim; output in the compute dtype."""
+    """fp32-stat LayerNorm over the last dim; output in the compute dtype.
+    K5 on CUDA tensors, the plain version on CPU tensors (`ops/layernorm.py`)."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  dtype=torch.bfloat16, device=None):
@@ -126,11 +128,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, correction=0)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(self.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from anyedit_tpu_torch.ops import _build
 from anyedit_tpu_torch.ops.quant import absmax_scale, div127, quantize_int8
+from anyedit_tpu_torch.ops.recompute import Recompute
 
 _LOG2E = 1.4426950408889634
 # Logit clamp of the max-free softmax (base-2 logits above 80 saturate
@@ -341,26 +342,10 @@ def _heads(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(b * h, l, d).contiguous()
 
 
-class _RecomputeAttnFn(torch.autograd.Function):
+class _RecomputeAttnFn(Recompute):
     """A hand kernel's forward over (B, H, L, D) q, k, v; the backward is
     the autograd of `sdpa` at the same scale on the saved inputs (fp32
     logits and softmax, probabilities cast to v's dtype)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale, kernel):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return kernel(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, grad):
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(r)
-                   for t, r in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
-            out = sdpa(*ins, scale=ctx.scale)
-            want = [t for t in ins if t.requires_grad]
-            got = iter(torch.autograd.grad(out, want, grad))
-        return tuple(next(got) if t.requires_grad else None for t in ins) + (None, None)
 
 
 def _k1(q, k, v, scale):
@@ -376,7 +361,7 @@ def _k4(q, k, v, scale):
 def _recompute_route(kernel, q, k, v, scale):
     """`kernel(q, k, v, scale)`, through `_RecomputeAttnFn` under grad."""
     if _wants_grad(q, k, v):
-        return _RecomputeAttnFn.apply(q, k, v, scale, kernel)
+        return _RecomputeAttnFn.apply(kernel, sdpa, q, k, v, scale)
     return kernel(q, k, v, scale)
 
 

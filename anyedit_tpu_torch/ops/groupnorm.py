@@ -25,6 +25,7 @@ import functools
 import torch
 
 from anyedit_tpu_torch.ops import _build
+from anyedit_tpu_torch.ops.recompute import Recompute
 
 # K2's launch plan (see `_k2_plan`). The H100 has 132 SMs and 227 KB of
 # shared memory a block; a cluster of more than 8 blocks is non-portable.
@@ -92,25 +93,9 @@ def group_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-class _GroupNormFn(torch.autograd.Function):
+class _GroupNormFn(Recompute):
     """K2 forward, recompute backward: the gradients of `group_norm_plain`
     at the saved inputs, for x and for scale and bias."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, silu):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.args = (num_groups, eps, silu)
-        return _group_norm_launch(x, scale, bias, num_groups, eps, silu)
-
-    @staticmethod
-    def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
-            y = group_norm_plain(*ins, *ctx.args)
-            got = iter(torch.autograd.grad(y, [t for t, r in zip(ins, need) if r], grad))
-        return tuple(next(got) if r else None for r in need) + (None, None, None)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -125,7 +110,8 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     otherwise it is the direct call."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
-        return _GroupNormFn.apply(x, scale, bias, num_groups, eps, silu)
+        return _GroupNormFn.apply(_group_norm_launch, group_norm_plain, x, scale, bias,
+                                  num_groups, eps, silu)
     return _group_norm_launch(x, scale, bias, num_groups, eps, silu)
 
 

@@ -22,6 +22,7 @@ Each `check_*` of a kernel also returns its yardsticks:
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 
 import torch
@@ -32,6 +33,7 @@ from anyedit_tpu_torch.ops.attention import (
     flash_nomax, flash_nomax_plain, sdpa,
 )
 from anyedit_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
+from anyedit_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 from anyedit_tpu_torch.ops.quant import (
     absmax_scale, int8_conv2d, int8_matmul, quantize_int8,
 )
@@ -225,6 +227,87 @@ def check_group_norm(shape, silu: bool, device, dtype=torch.bfloat16,
     res.update(roofline(10 * x.numel(), PEAK_FP32,
                         2 * x.numel() * x.element_size() + 2 * c * 4,
                         exps=x.numel() if silu else 0))
+    return res
+
+
+def _layer_norm_inputs(shape, in_dtype, device, seed: int):
+    """x of `shape` (rows, C) in `in_dtype`, N(0, 1) scaled by 4 with
+    per-row offsets up to 8 (each row's mean matters), and fp32 weight and
+    bias near 1 and 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows, c = shape
+    x = torch.randn(shape, generator=g, device=device) * 4 \
+        + 8 * torch.rand((rows, 1), generator=g, device=device)
+    weight = torch.randn(c, generator=g, device=device) * 0.1 + 1
+    bias = torch.randn(c, generator=g, device=device) * 0.1
+    return x.to(in_dtype), weight, bias
+
+
+# The H100's L2: an input smaller than this, read again at once, comes from
+# the L2 and not from HBM
+L2_BYTES = 50 * 2 ** 20
+
+
+def _rotation(x: torch.Tensor, out_bytes: int) -> list:
+    """x and copies of it, so many that they and one output of `out_bytes`
+    each hold more than twice the L2: a timing that takes them in turn reads
+    every input from HBM."""
+    per = x.numel() * x.element_size() + out_bytes
+    return [x] + [x.clone() for _ in range(2 * L2_BYTES // per + 1)]
+
+
+def _rotated(fn, xs: list):
+    """`fn(x)` over `xs` in turn, each output kept until its input comes
+    round again (so the outputs rotate through as many buffers)."""
+    outs, turn = [None] * len(xs), itertools.count()
+
+    def call():
+        i = next(turn) % len(xs)
+        outs[i] = None
+        outs[i] = fn(xs[i])
+    return call
+
+
+def check_layer_norm(shape, in_dtype, out_dtype, device, eps: float = 1e-5,
+                     seed: int = 7, iters: int = 10) -> dict:
+    """K5 vs its plain version on one (rows, C) input in `in_dtype`, output
+    in `out_dtype`: `max_abs_err`, `mean_abs_err`, `bf16_ulps` (the largest
+    distance in bf16 roundings, `_bf16_ulps`) and `rel_err` (the largest
+    distance over the largest |plain output|). `launches`: K5's in one call.
+    Every time is taken over a rotation of copies of x larger than the L2
+    (`_rotation`, `copies` of them), so each call reads its input from HBM.
+    `gbps` counts one read of x and one write of y over the kernel's device
+    time, and `bound_share` is `bound_ms` over that time. The library call
+    is `F.layer_norm` on x with the affine in x's dtype, then a cast where
+    the output dtype differs (two calls)."""
+    x, weight, bias = _layer_norm_inputs(shape, in_dtype, device, seed)
+    n0 = layer_norm.launches
+    out = layer_norm(x, weight, bias, eps, out_dtype)
+    res = {"launches": layer_norm.launches - n0, "dtype": str(out.dtype)}
+    ref = layer_norm_plain(x, weight, bias, eps, out_dtype)
+    res.update(_errors(out, ref))
+    res["bf16_ulps"] = _bf16_ulps(out, ref)
+    res["rel_err"] = res["max_abs_err"] / float(ref.float().abs().max())
+    del ref
+    c = shape[1]
+    xs = _rotation(x, out.numel() * out.element_size())
+    res["copies"] = len(xs)
+    wl, bl = weight.to(in_dtype), bias.to(in_dtype)
+    if out_dtype == in_dtype:
+        lib = lambda x: F.layer_norm(x, (c,), wl, bl, eps)
+    else:
+        lib = lambda x: F.layer_norm(x, (c,), wl, bl, eps).to(out_dtype)
+    _timings(res, _rotated(lambda x: layer_norm(x, weight, bias, eps, out_dtype), xs),
+             _rotated(lambda x: layer_norm_plain(x, weight, bias, eps, out_dtype), xs),
+             _rotated(lib, xs), iters)
+    res["library"] = ("F.layer_norm" if out_dtype == in_dtype
+                      else "F.layer_norm, then a cast (two calls)")
+    nbytes = x.numel() * (x.element_size() + out.element_size()) + 2 * c * 4
+    res["gbps"] = nbytes / res["device_ms"] * 1e-6
+    # about 8 fp32 operations an element (two sums, the centring, the
+    # square, the affine); the bytes bind by far
+    res.update(roofline(8 * x.numel(), PEAK_FP32, nbytes))
+    res["bound_share"] = res["bound_ms"] / res["device_ms"]
     return res
 
 
@@ -492,4 +575,50 @@ def check_group_norm_grad(shape, silu: bool, device, seed: int = 6,
                       else "F.group_norm, backward")
     res.update(roofline(20 * x.numel(), PEAK_FP32, 3 * x.numel() * 2 + 4 * c * 4,
                         exps=x.numel() if silu else 0))
+    return res
+
+
+def check_layer_norm_grad(shape, device, eps: float = 1e-5, seed: int = 8,
+                          iters: int = 5) -> dict:
+    """K5 under grad (`layer_norm`'s route: K5 forward, the recompute
+    backward through `layer_norm_plain`) against the autograd of the plain
+    version, on the same bf16 x of `shape` (rows, C), fp32 weight and bias
+    near 1 and 0, bf16 output and a N(0, 1) bf16 output gradient: dx,
+    dweight, dbias, and the output (`fwd_*`, as `check_flash_nomax_grad`'s).
+    Times as `check_flash_nomax_grad`'s; the library is `F.layer_norm` on
+    bf16 copies of the affine. `bound_ms` is the backward's: x and dy read,
+    dx written, the affine and its gradients once."""
+    x, weight, bias = _layer_norm_inputs(shape, torch.bfloat16, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    dy = torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+    ins = [t.requires_grad_() for t in (x, weight, bias)]
+    fn = lambda x, w, b: layer_norm(x, w, b, eps, torch.bfloat16)
+    plain = lambda x, w, b: layer_norm_plain(x, w, b, eps, torch.bfloat16)
+
+    n0 = layer_norm.launches
+    out = fn(*ins)
+    got = torch.autograd.grad(out, ins, dy)
+    res = {"launches": layer_norm.launches - n0, "has_grad_fn": out.grad_fn is not None}
+    ref = plain(*ins)
+    res.update(_grad_errors(got, torch.autograd.grad(ref, ins, dy)))
+    res.update({f"fwd_{k}": v for k, v in _errors(out.detach(), ref.detach()).items()})
+    res["fwd_bf16_ulps"] = _bf16_ulps(out.detach(), ref.detach())
+    c = shape[1]
+    lib_ins = [x, weight.detach().to(torch.bfloat16).requires_grad_(),
+               bias.detach().to(torch.bfloat16).requires_grad_()]
+    lib = lambda x, w, b: F.layer_norm(x, (c,), w, b, eps)
+    with torch.no_grad():
+        res["fwd_ms"] = time_ms(lambda: fn(x, weight, bias), iters)
+    res["ms"] = _bwd_ms(fn, ins, dy, iters)
+    res["fwd_bwd_ms"] = _fwd_bwd_ms(fn, ins, dy, iters)
+    res["plain_ms"] = _bwd_ms(plain, ins, dy, iters)
+    res["library_ms"] = _bwd_ms(lib, lib_ins, dy, iters)
+    res["library_fwd_bwd_ms"] = _fwd_bwd_ms(lib, lib_ins, dy, iters)
+    res["library"] = "F.layer_norm, backward"
+    # the backward's ~20 small kernels can outrun the host's launches: its
+    # device time alone, against the events' `ms`
+    y = fn(*ins)
+    res["bwd_device_ms"], _ = device_profile(
+        lambda: torch.autograd.grad(y, ins, dy, retain_graph=True), iters)
+    res.update(roofline(16 * x.numel(), PEAK_FP32, 3 * x.numel() * 2 + 4 * c * 4))
     return res

@@ -21,9 +21,13 @@ Phases, each printing its own line with the seconds it took:
      the four GroundingDINO input-projection shapes), K3 (online-softmax
      flash on tensor cores) and K4 (int8 flash over 512-key blocks) against
      their plain PyTorch versions at the paths' shapes, TF32 off; K4 also
-     against fp32 sdpa. Each line also carries the kernel's bound (roofline,
-     with the exp term) and the time of the one PyTorch call that computes
-     the same function, where there is one;
+     against fp32 sdpa; K5 (LayerNorm) at K5_SHAPES, the UNet's four norm
+     shapes at batch 12 and the grounder's, each within one bf16 rounding
+     of its plain version (1e-5 of the largest output in fp32) and, at the
+     UNet's levels 0 and 1, at 60 % or more of its bytes bound. Each line
+     also carries the kernel's bound (roofline, with the exp term) and the
+     time of the one PyTorch call that computes the same function, where
+     there is one;
   4. int8: the W8A8 int32 contraction (int8 im2col + torch._int_mm) equals
      a float64 contraction bit for bit, for a full-width conv and dense; the
      W8A8 scales and codes of tensors full of x / s = 63.5 ties equal the
@@ -37,7 +41,8 @@ Phases, each printing its own line with the seconds it took:
   6. slice: the full-width SD1.5-IP2P + SD-VAE + CLIP-L editor (seeded
      random weights drawn on the card) serves two 100-step edit requests
      through `ModelZoo.ip2p()`; K1 must launch exactly 10 times per UNet
-     call and K2 at least once;
+     call, K2 at least once, K5 48 times a UNet call at the batch-3 shapes
+     of K5_UNET_LEVELS (`k5_tally`) and the plain LayerNorm never;
   7. k3 path: one 20-step edit through `ip2p_edit` on the same UNet with a
      processor that sends all 32 attention sites to `attention(...,
      use_flash=True)`; K3 must launch exactly 32 times per UNet call; one
@@ -51,7 +56,8 @@ Phases, each printing its own line with the seconds it took:
  10. grounding: the full-width GroundingDINO SwinB (800 px, 900 queries,
      256 text tokens) and SAM ViT-H (1024) of `ModelZoo.grounder()`, seeded
      weights drawn on the card, ground one 480x640 image: K2 exactly 4
-     launches (the input-projection norms), K1 none; finite logits and
+     launches (the input-projection norms), K1 none, K5 at the grounder's
+     rows of K5_SHAPES and the plain LayerNorm never; finite logits and
      boxes; masks of (h, w); the times of the detector, the SAM encode and
      decode, and the whole call;
  11. color_alter record: one InstructionRecord through
@@ -120,7 +126,11 @@ line, with the launches of the path that gives the kernel that shape. Then:
      the bucket: four color_alter records, each its own image, in one
      chunk, so the batched edit fills `edit_batch_bucket` (the UNet at
      batch 12): the batch stages present, no fall-back, no live unmasked
-     IP2P call, the four edits in one batched call (K1 1,000).
+     IP2P call, the four edits in one batched call (K1 1,000). In each of
+     the three runs K5 launches 48 times a UNet call at the shapes of
+     K5_UNET_LEVELS at the run's UNet batch (`k5_tally`; the bucket's are
+     the UNet rows of K5_SHAPES), at least once in the scorers' towers
+     (K5_SCORER_MODELS, `k5_inside`), and the plain LayerNorm never.
 After `inpaint reference`, `ultraedit reference` holds the tiny UltraEdit
 slot (MMDiT with its modulations drawn live, the flow edit, the SD3 VAE,
 CLIP-L with projection, CLIP-G, T5) in bf16 on the card against fp32 on the
@@ -253,11 +263,12 @@ After phase 21, on models of its own (freed after):
      decode ms. The K1 and K2 rows carry `launches_vila` and `launches_llm`;
      K1's carries `launches_ocr`.
 Then training (slice 6a), on models of their own:
- 23. train kernels: K1's and K2's autograd Functions (the kernel forward,
-     the backward recomputing through the plain versions, no launch) at
-     the training shapes (K1_GRAD_SHAPES, K2_GRAD_SHAPES): the gradients
-     against the plain versions' autograd (K1_GRAD_REL_L2, K2_GRAD_REL_L2),
-     the output against the plain version's (K1_FWD_BOUNDS, K2_FWD_BOUNDS),
+ 23. train kernels: K1's, K2's and K5's autograd Functions (the kernel
+     forward, the backward recomputing through the plain versions, no
+     launch) at the training shapes (K1_GRAD_SHAPES, K2_GRAD_SHAPES,
+     K5_GRAD_SHAPES): the gradients against the plain versions' autograd
+     (K1_GRAD_REL_L2, K2_GRAD_REL_L2 for K2 and K5), the output against the
+     plain version's (K1_FWD_BOUNDS, K2_FWD_BOUNDS, K5_BF16_ULPS),
      a grad_fn on each output, forward and backward ms beside the
      backward's bound and `F.scaled_dot_product_attention` /
      `F.group_norm` + `F.silu` forward and backward;
@@ -270,9 +281,9 @@ Then training (slice 6a), on models of their own:
      (counted around `train_step`), the VAE encoder's 22 norms twice a
      step, the grid's edit K1 100; finite losses, the adapter moved, the
      UNet's bytes unchanged, checkpoints 2 and 4; then the disconnect check
-     (DISCONNECT_COS, DISCONNECT_REL_L2 against plain autograd; two
-     controls, K1's outputs cut from autograd and K2's cut at all but the
-     last norm, must each fail it);
+     (DISCONNECT_COS, DISCONNECT_REL_L2 against plain autograd; three
+     controls, K1's outputs cut from autograd, K2's cut at all but the
+     last norm and K5's cut, must each fail it);
      then `dp` (slice 7c, data parallelism), in subprocesses (this process
      joins no group; a worker that exits non-zero fails the run): (a)
      `python -m torch.distributed.run --standalone --nproc_per_node 1` runs
@@ -467,6 +478,41 @@ MMDIT_FP32_REL_L2 = 0.02
 # amplifies the bf16 differences over the steps. Mean uint8 distance; an
 # H100 measured 0.71 (largest pixel 6 levels).
 CHUNK_EDIT_MEAN_BOUND = 2.0
+# K5 (LayerNorm, `csrc/layer_norm.cu`) in one UNet call at 512 px, by
+# (tokens an image, C): 16 transformer blocks of 3 norms, five blocks at each
+# of levels 0 to 2 and one in the mid block
+K5_UNET_LEVELS = {(4096, 320): 15, (1024, 640): 15, (256, 1280): 15, (64, 1280): 3}
+K5_PER_UNET_CALL = 48
+# the zoo's cached scorer towers that hold LayerNorms: CLIP-L vision and
+# text, EVA ViT-g and BLIP-2
+K5_SCORER_MODELS = ("clip_vision", "clip_text_proj", "eva_vit", "blip2")
+
+
+def k5_unet(batch: int, calls: int = 1) -> dict:
+    """K5's launches in `calls` UNet calls at `batch` rows, keyed as
+    `k5_tally` keys them."""
+    return {((batch * t, c), "torch.bfloat16", "torch.bfloat16"): n * calls
+            for (t, c), n in K5_UNET_LEVELS.items()}
+
+
+# K5 at the main path's shapes (rows, C), input and output dtype, each with
+# the path that gives it that shape: the bucket's UNet calls (batch 12, 4
+# records x 3-way CFG) and one ground() of a 480x640 image (GroundingDINO's
+# encoder over the 13,294 tokens of its four levels at 800 px, fed fp32; SAM
+# ViT-H's 64x64 tokens).
+K5_SHAPES = [(k[0], "bf16", "bf16", "unet_b12") for k in k5_unet(12)] + [
+    ((13294, 256), "fp32", "bf16", "ground"), ((4096, 1280), "bf16", "bf16", "ground")]
+K5_PATHS = {"unet_b12": "one UNet call of the bucket at batch 12 (the benchmark's edit)",
+            "ground": "one ground() of a 480x640 image (GroundingDINO SwinB, SAM ViT-H)"}
+# K5 against its plain version: a bf16 output within one bf16 rounding, an
+# fp32 output within 1e-5 of the largest |output|; and at least 60 % of its
+# bytes bound (device time, each input read from HBM) at the UNet's level-0
+# and level-1 shapes
+K5_BF16_ULPS, K5_FP32_REL = 1.0, 1e-5
+K5_MIN_BOUND_SHARE = {(49152, 320): 0.6, (12288, 640): 0.6}
+# K5's backward (the plain version's autograd on the saved inputs) at the
+# AnySD step's levels 0 and 1 (batch 16, 32x32 latents)
+K5_GRAD_SHAPES = [(16384, 320), (4096, 640)]
 
 
 @contextlib.contextmanager
@@ -521,6 +567,104 @@ def report_k2(shape: str, r: dict) -> None:
           flush=True)
     require(r["finite"] and r["max_abs_err"] <= K2_FWD_BOUNDS[0]
             and r["mean_abs_err"] <= K2_FWD_BOUNDS[1], f"K2 {shape} agrees with its plain version")
+
+
+def _dtype(name: str):
+    import torch
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+
+
+def check_k5(dev):
+    """K5 against its plain version at K5_SHAPES, with K5's bounds and its
+    share of the bytes bound. Returns [(tag, row, path, key)], key (shape,
+    input dtype, output dtype) as `k5_tally` counts them."""
+    from anyedit_tpu_torch.ops import kernel_check as kc
+
+    rows = []
+    for s, din, dout, path in K5_SHAPES:
+        r = kc.check_layer_norm(s, _dtype(din), _dtype(dout), dev)
+        tag = f"{s} {din}->{dout}"
+        err = (f"{r['bf16_ulps']:.2f} bf16 roundings" if dout == "bf16"
+               else f"{r['rel_err']:.2e} of the largest output")
+        print(f"K5 layer_norm {tag}: max {r['max_abs_err']:.3e} ({err}) mean "
+              f"{r['mean_abs_err']:.3e} | kernel {r['ms']:.4f} ms ({r['gbps']:.0f} GB/s, "
+              f"{r['bound_share'] * 100:.1f} % of the bytes bound; {r['copies']} inputs in "
+              f"turn) plain {r['plain_ms']:.4f} ms{yardsticks(r)} | launches a call "
+              f"{r['launches']}",
+              flush=True)
+        ok = r["bf16_ulps"] <= K5_BF16_ULPS if dout == "bf16" else r["rel_err"] <= K5_FP32_REL
+        require(r["finite"] and ok and r["launches"] == 1,
+                f"K5 {tag} agrees with its plain version in one launch")
+        share = K5_MIN_BOUND_SHARE.get(s)
+        require(share is None or r["bound_share"] >= share,
+                f"K5 {tag} reaches {share} of its bytes bound")
+        rows.append((tag, r, path, (s, str(_dtype(din)), str(_dtype(dout)))))
+    return rows
+
+
+@contextlib.contextmanager
+def k5_tally():
+    """K5's launches inside the block by ((rows, C), input dtype, output
+    dtype), and the plain version's calls under the key "plain": the models
+    reach K5 through `models/layers.py`'s `layer_norm`, which is wrapped for
+    the block, and the plain version through `ops/layernorm.py`'s
+    `layer_norm_plain`."""
+    from anyedit_tpu_torch.models import layers
+    from anyedit_tpu_torch.ops import layernorm as ln_mod
+
+    real, real_plain = layers.layer_norm, ln_mod.layer_norm_plain
+    tally = collections.Counter()
+
+    def spy(x, weight, bias, eps=1e-5, dtype=None):
+        n0 = real.launches
+        y = real(x, weight, bias, eps, dtype)
+        if real.launches > n0:
+            c = x.shape[-1]
+            tally[((x.numel() // c, c), str(x.dtype), str(y.dtype))] += 1
+        return y
+
+    def plain_spy(*a, **k):
+        tally["plain"] += 1
+        return real_plain(*a, **k)
+    layers.layer_norm, ln_mod.layer_norm_plain = spy, plain_spy
+    try:
+        yield tally
+    finally:
+        layers.layer_norm, ln_mod.layer_norm_plain = real, real_plain
+
+
+@contextlib.contextmanager
+def k5_inside(modules):
+    """[K5's launches inside the forwards of `modules` in the block], read
+    by forward hooks at entry and exit (the modules do not call each
+    other)."""
+    from anyedit_tpu_torch.ops.layernorm import layer_norm
+
+    n, opened = [0], []
+
+    def enter(mod, args):
+        opened.append(layer_norm.launches)
+
+    def leave(mod, args, out):
+        n[0] += layer_norm.launches - opened.pop()
+    hooks = [h for m in modules for h in (m.register_forward_pre_hook(enter),
+                                         m.register_forward_hook(leave))]
+    try:
+        yield n
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def require_k5_unet(label: str, tally, batch: int, calls: int) -> None:
+    """K5 launched exactly 48 times a UNet call at `batch`'s shapes in
+    `tally` (`k5_tally`), and the plain LayerNorm never."""
+    want = k5_unet(batch, calls)
+    got = {k: tally.get(k, 0) for k in want}
+    require(got == want and "plain" not in tally,
+            f"{label}: K5 at the UNet's shapes {got}, want {K5_PER_UNET_CALL} a call over "
+            f"{calls} calls at batch {batch} {want}; the plain LayerNorm "
+            f"{tally.get('plain', 0)} times")
 
 
 def check_chunk_kernels(dev):
@@ -790,15 +934,17 @@ def serve_slice(dev, zoo, label: str):
     flash_nomax.launches = 0
     group_norm.launches = 0
     seconds = []
-    for img, (_, instruction) in zip(images, REQUESTS):
-        t0 = time.perf_counter()
-        out = edit(img, instruction, None, steps=STEPS, s_txt=S_TXT, s_img=S_IMG,
-                   seed=len(seconds))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        require(out.shape == img.shape and out.dtype == np.uint8,
-                f"{label}: output of {img.shape} is {out.shape} {out.dtype}")
-    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
+    with k5_tally() as k5:
+        for img, (_, instruction) in zip(images, REQUESTS):
+            t0 = time.perf_counter()
+            out = edit(img, instruction, None, steps=STEPS, s_txt=S_TXT, s_img=S_IMG,
+                       seed=len(seconds))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            require(out.shape == img.shape and out.dtype == np.uint8,
+                    f"{label}: output of {img.shape} is {out.shape} {out.dtype}")
+    launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches,
+                "layer_norm": sum(n for k, n in k5.items() if k != "plain"), "k5": dict(k5)}
     hook.remove()
 
     require(len(latents) == len(REQUESTS) and
@@ -808,6 +954,7 @@ def serve_slice(dev, zoo, label: str):
     require(launches["flash_nomax"] == want,
             f"{label}: K1 launched {launches['flash_nomax']} times, want {want}")
     require(launches["group_norm"] > 0, f"{label}: K2 launched on the main path")
+    require_k5_unet(label, k5, 3, len(REQUESTS) * STEPS)
 
     unet, _ = zoo._ip2p_core()
     x, t, ctx = unet_inputs(zoo, dev)
@@ -937,13 +1084,21 @@ def grounding(dev, zoo):
     torch.cuda.synchronize()
     flash_nomax.launches = 0
     group_norm.launches = 0
-    t0 = time.perf_counter()
-    g = ground(img, RECORD["edited object"])
-    torch.cuda.synchronize()
-    call_ms = (time.perf_counter() - t0) * 1e3
+    with k5_tally() as k5:
+        t0 = time.perf_counter()
+        g = ground(img, RECORD["edited object"])
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
     launches = {"flash_nomax": flash_nomax.launches, "group_norm": group_norm.launches}
     require(launches == {"flash_nomax": 0, "group_norm": K2_PER_GROUND},
             f"grounding launched {launches}, want K1 0 and K2 {K2_PER_GROUND}")
+    k5 = dict(k5)
+    held = {(s, str(_dtype(din)), str(_dtype(dout)))
+            for s, din, dout, path in K5_SHAPES if path == "ground"}
+    print(f"K5 in one ground(): {sum(n for k, n in k5.items() if k != 'plain')} launches "
+          f"by shape {k5}", flush=True)
+    require("plain" not in k5 and held <= set(k5),
+            f"ground() launches K5 at {sorted(held)} and the plain version never")
     require(g is not None and tuple(g.mask.shape) == GROUND_HW
             and tuple(g.masks.shape[1:]) == GROUND_HW and int(g.count) > 0,
             "ground() keeps boxes and returns masks of the image's shape")
@@ -969,7 +1124,7 @@ def grounding(dev, zoo):
           f"{float(g.mask.float().mean()):.3f}; detector {ms['gdino_forward_ms']:.1f} ms, "
           f"SAM encode {ms['sam_encode_ms']:.1f} ms, SAM decode of {prompts.shape[1]} boxes "
           f"{ms['sam_decode_ms']:.1f} ms; launches {launches}", flush=True)
-    return launches, ms
+    return launches, ms, k5
 
 
 def color_alter_record(dev, zoo, k2_per_request: int):
@@ -1518,6 +1673,9 @@ def chunk(dev, pzoo):
           f"the card in {time.perf_counter() - t0:.2f} s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB resident", flush=True)
     ground_as_real_weights(tb, dev).update(id(im) for im in images.values())
+    require(set(K5_SCORER_MODELS) <= set(pzoo._cache),
+            f"the toolbox built the scorer towers {K5_SCORER_MODELS}")
+    scorers = [pzoo._cache[k] for k in K5_SCORER_MODELS]
     real = tb.ip2p
     live, batched, single, calls = [], {}, {}, []
 
@@ -1548,11 +1706,14 @@ def chunk(dev, pzoo):
             flash_nomax.launches = 0
             group_norm.launches = 0
             t0 = time.perf_counter()
-            report = ex.run(records, lambda r: images[r.key()])
-            torch.cuda.synchronize()
+            with k5_tally() as k5, k5_inside(scorers) as k5_scorers:
+                report = ex.run(records, lambda r: images[r.key()])
+                torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = {"flash_nomax": flash_nomax.launches,
-                        "group_norm": group_norm.launches}
+                        "group_norm": group_norm.launches,
+                        "layer_norm": sum(n for k, n in k5.items() if k != "plain"),
+                        "layer_norm_scorers": k5_scorers[0], "k5": dict(k5)}
             lines = [json.loads(x) for x in (Path(root) / "ledger.jsonl").read_text()
                      .splitlines()]
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1564,6 +1725,10 @@ def chunk(dev, pzoo):
               f"({seconds / len(records):.3f} s a record), peak {peak:.2f} GiB allocated; "
               f"outcomes {sorted(outcomes.values())}; launches {launches}; StageTimer "
               f"{json.dumps(report['stages'])}", flush=True)
+        n_edit = sum(r.edit_type == "color_alter" for r in records)
+        require_k5_unet(label, k5, 3 * n_edit if cfg.get("grounding_batch") else 3,
+                        STEPS * (1 if cfg.get("grounding_batch") else n_edit))
+        require(k5_scorers[0] > 0, f"{label}: K5 launched in the scorers' towers")
         if cfg.get("grounding_batch"):
             require({"ground_batch", "clip_batch", "edit_batch"} <= set(report["stages"]),
                     f"{label} ran ground_batch, clip_batch and edit_batch: "
@@ -3430,22 +3595,24 @@ K2_GRAD_SHAPES = [((16, 320, 32, 32), True), ((16, 1280, 4, 4), True),
 # the plain version's own autograd on the saved inputs, so within one.
 K1_GRAD_REL_L2 = 2.0 ** -6
 K2_GRAD_REL_L2 = 2.0 ** -8
-# One full-width AnySD step through K1 and K2 against the same step with
-# both swapped for their plain versions (plain autograd end to end): the
-# adapter gradients, flattened, at cosine >= 0.99 and relative L2 <= 0.05
-# (bf16 roundings of the two forwards through 16 transformer blocks). Two
-# controls must fail it: the step with K1's outputs cut from autograd (what
-# the wrappers returned before they had a backward) and K2 kept, and with
-# K2's cut at every norm but the last.
+# One full-width AnySD step through K1, K2 and K5 against the same step
+# with all three swapped for their plain versions (plain autograd end to
+# end): the adapter gradients, flattened, at cosine >= 0.99 and relative L2
+# <= 0.05 (bf16 roundings of the two forwards through 16 transformer
+# blocks). Three controls must fail it: the step with K1's outputs cut from
+# autograd (what the wrappers returned before they had a backward) and K2
+# kept, with K2's cut at every norm but the last, and with K5's cut.
 DISCONNECT_COS, DISCONNECT_REL_L2 = 0.99, 0.05
 
 
 def check_train_kernels(dev):
-    """K1's and K2's backward (the Functions' recompute) at K1_GRAD_SHAPES /
-    K2_GRAD_SHAPES against the plain versions' autograd, the bounds above,
-    and the Functions' forward output against the plain version's, with
-    `check_kernels`' bounds; each output carries a grad_fn and the backward
-    launches no kernel. Returns [(kernel, tag, row)]."""
+    """K1's, K2's and K5's backward (the Functions' recompute) at
+    K1_GRAD_SHAPES / K2_GRAD_SHAPES / K5_GRAD_SHAPES against the plain
+    versions' autograd, the bounds above (K5's as K2's: its backward is the
+    plain version's own autograd), and the Functions' forward output against
+    the plain version's, with `check_kernels`' bounds (K5's: K5_BF16_ULPS);
+    each output carries a grad_fn and the backward launches no kernel.
+    Returns [(kernel, tag, row)]."""
     from anyedit_tpu_torch.ops import kernel_check as kc
 
     rows = []
@@ -3455,6 +3622,24 @@ def check_train_kernels(dev):
     for s, silu in K2_GRAD_SHAPES:
         r = kc.check_group_norm_grad(s, silu, dev)
         rows.append(("group_norm", f"{s} {'silu' if silu else 'plain'}", r))
+    k5 = []
+    for s in K5_GRAD_SHAPES:
+        r = kc.check_layer_norm_grad(s, dev)
+        k5.append(("layer_norm", str(s), r))
+        print(f"K5 layer_norm backward {s}: rel-L2 {r['rel_l2']:.3e} (bound "
+              f"{K2_GRAD_REL_L2:.3e}), max {r['max_abs_err']:.3e}; output "
+              f"{r['fwd_bf16_ulps']:.2f} bf16 roundings (bound {K5_BF16_ULPS}) | forward "
+              f"{r['fwd_ms']:.4f} ms, backward {r['ms']:.4f} ms (device "
+              f"{r['bwd_device_ms']:.4f}; both {r['fwd_bwd_ms']:.4f}), "
+              f"plain backward {r['plain_ms']:.4f} ms | bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bound_term']}) | library backward "
+              f"{r['library_ms']:.4f} ms, both {r['library_fwd_bwd_ms']:.4f} ms "
+              f"[{r['library']}]", flush=True)
+        require(r["finite"] and r["rel_l2"] <= K2_GRAD_REL_L2 and r["has_grad_fn"]
+                and r["launches"] == 1 and r["fwd_finite"]
+                and r["fwd_bf16_ulps"] <= K5_BF16_ULPS,
+                f"layer_norm {s}: the backward agrees with the plain autograd, the output "
+                "with the plain version, a grad_fn, one launch (the forward's)")
     for name, tag, r in rows:
         bound = K1_GRAD_REL_L2 if name == "flash_nomax" else K2_GRAD_REL_L2
         fwd = K1_FWD_BOUNDS if name == "flash_nomax" else K2_FWD_BOUNDS
@@ -3474,7 +3659,7 @@ def check_train_kernels(dev):
         require(r["fwd_finite"] and r["fwd_max_abs_err"] <= fwd[0]
                 and r["fwd_mean_abs_err"] <= fwd[1],
                 f"{name} {tag}: the forward under grad agrees with its plain version")
-    return rows
+    return rows + k5
 
 
 def check_train_reference(dev):
@@ -3582,6 +3767,11 @@ def group_norms(module) -> int:
     return sum(isinstance(m, GroupNorm) for m in module.modules())
 
 
+def layer_norms(module) -> int:
+    from anyedit_tpu_torch.models.layers import LayerNorm
+    return sum(isinstance(m, LayerNorm) for m in module.modules())
+
+
 def train_phase(dev, ledger: Path, image_root: Path):
     """`cli.main(["train", ...])` at full width on seeded weights drawn on
     the card, on the executor record's success ledger (one record; the
@@ -3601,6 +3791,7 @@ def train_phase(dev, ledger: Path, image_root: Path):
     from anyedit_tpu_torch.ops.attention import flash_nomax, flash_nomax_plain
     from anyedit_tpu_torch.ops import groupnorm as gn_mod
     from anyedit_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
+    from anyedit_tpu_torch.ops import layernorm as ln_mod
     from anyedit_tpu_torch.train.anysd import AnySDTrainer
     from anyedit_tpu_torch.train.checkpoint import TrainCheckpointer
     from anyedit_tpu_torch.train.inference import AnySDEditor
@@ -3694,14 +3885,14 @@ def train_phase(dev, ledger: Path, image_root: Path):
 
     def grads():
         """(the adapter's gradients flattened, or None where the loss has no
-        autograd graph at all, (K1, K2) launches)."""
-        flash_nomax.launches = group_norm.launches = 0
+        autograd graph at all, (K1, K2, K5) launches)."""
+        flash_nomax.launches = group_norm.launches = ln_mod.layer_norm.launches = 0
         loss = tr.loss_fn(adapter, unet, batch, draws)
         gs = (torch.autograd.grad(loss, list(adapter.parameters()))
               if loss.requires_grad else None)
         torch.cuda.synchronize()
         return (None if gs is None else torch.cat([x.flatten().float() for x in gs]),
-                (flash_nomax.launches, group_norm.launches))
+                (flash_nomax.launches, group_norm.launches, ln_mod.layer_norm.launches))
 
     def plain_attention(q, k, v, scale=None, use_flash=None, int8=False):
         b, h, lq, d = q.shape
@@ -3711,36 +3902,42 @@ def train_phase(dev, ledger: Path, image_root: Path):
                                      ).reshape(b, h, lq, d)
         return attn_mod.attention(q, k, v, scale, use_flash, int8)
 
-    with k1_tally() as t1, k2_tally() as t2:
+    with k1_tally() as t1, k2_tally() as t2, k5_tally() as t5:
         shipped, n_shipped = grads()
-    real_attn, real_gn = layers.attention_op, layers.group_norm
-    layers.attention_op, layers.group_norm = plain_attention, group_norm_plain
+    real = layers.attention_op, layers.group_norm, layers.layer_norm
+    layers.attention_op, layers.group_norm, layers.layer_norm = (
+        plain_attention, group_norm_plain, ln_mod.layer_norm_plain)
     try:
         plain, n_plain = grads()
     finally:
-        layers.attention_op, layers.group_norm = real_attn, real_gn
+        layers.attention_op, layers.group_norm, layers.layer_norm = real
 
     def compare(a):
         return cosine(a, plain), float((a - plain).norm() / plain.norm())
     cos, rel = compare(shipped)
 
     # the controls: the same step with K1's outputs cut from autograd at its
-    # 5 sites (K2 kept), and with K2's cut at every norm but conv_norm_out
-    # (K1 kept; cut there too, the loss has no graph and `backward` raises)
+    # 5 sites (K2 kept), with K2's cut at every norm but conv_norm_out (K1
+    # kept; cut there too, the loss has no graph and `backward` raises), and
+    # with K5's cut at every LayerNorm that takes the Function (the residual
+    # stream still carries a graph)
     real_k2_apply, keep = gn_mod._GroupNormFn.apply, []
 
-    def k2_cut(x, s, b, *args):
+    def cut_all(launch, plain, *args):
+        return launch(*args).detach()
+
+    def k2_cut(launch, plain, *args):
         if keep:
-            return real_k2_apply(x, s, b, *args)
-        return gn_mod._group_norm_launch(x, s, b, *args).detach()
+            return real_k2_apply(launch, plain, *args)
+        return cut_all(launch, plain, *args)
     hooks = [unet.conv_norm_out.register_forward_pre_hook(lambda m, i: keep.append(1)),
              unet.conv_norm_out.register_forward_hook(lambda m, i, o: keep.clear())]
     controls = {}
     try:
         for label, fn, cut in (
-                ("K1 cut", attn_mod._RecomputeAttnFn,
-                 lambda q, k, v, scale, kernel: kernel(q, k, v, scale).detach()),
-                ("K2 cut but at conv_norm_out", gn_mod._GroupNormFn, k2_cut)):
+                ("K1 cut", attn_mod._RecomputeAttnFn, cut_all),
+                ("K2 cut but at conv_norm_out", gn_mod._GroupNormFn, k2_cut),
+                ("K5 cut", ln_mod._LayerNormFn, cut_all)):
             fn.apply = staticmethod(cut)
             try:
                 got, n = grads()
@@ -3752,13 +3949,15 @@ def train_phase(dev, ledger: Path, image_root: Path):
     finally:
         for h in hooks:
             h.remove()
-    print(f"disconnect check: adapter gradients through K1 and K2 (launches {n_shipped}) "
+    print(f"disconnect check: adapter gradients through K1, K2 and K5 (launches "
+          f"{n_shipped}) "
           f"vs plain autograd (launches {n_plain}): cosine {cos:.6f}, rel-L2 {rel:.3e} "
           f"(bounds {DISCONNECT_COS}, {DISCONNECT_REL_L2}); controls: "
           + "; ".join(f"{k}: cosine {c:.6f}, rel-L2 {r:.3e}" for k, (c, r) in controls.items()),
           flush=True)
-    require(n_shipped == (K1_PER_TRAIN_STEP, group_norms(unet)) and n_plain == (0, 0),
-            "the shipped step went through K1 and K2, the plain one through neither")
+    require(n_shipped == (K1_PER_TRAIN_STEP, group_norms(unet), layer_norms(unet))
+            and n_plain == (0, 0, 0),
+            "the shipped step went through K1, K2 and K5, the plain one through none")
     require(cos >= DISCONNECT_COS and rel <= DISCONNECT_REL_L2,
             "the adapter gradients through the kernels match the plain autograd")
     for label, (c, r) in controls.items():
@@ -3766,7 +3965,7 @@ def train_phase(dev, ledger: Path, image_root: Path):
                 f"the check tells the gradient with {label} from the right one")
     shutil.rmtree(ckdir)
     return runs, {"cos": cos, "rel": rel, "controls": controls, "k1_by_shape": dict(t1),
-                  "k2_by_shape": dict(t2), "launches": n_shipped}
+                  "k2_by_shape": dict(t2), "k5_by_shape": dict(t5), "launches": n_shipped}
 
 
 def distill_phase(dev):
@@ -4781,6 +4980,7 @@ def main() -> int:
     with phase("kernels"):
         k1, k2, k3, k4 = check_kernels(dev)
         slice_rows = check_chunk_kernels(dev)
+        k5_rows = check_k5(dev)
 
     with phase("int8"):
         check_int8(dev)
@@ -4842,7 +5042,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with phase("grounding"):
-        g_launches, g_ms = grounding(dev, zoo)
+        g_launches, g_ms, g_k5 = grounding(dev, zoo)
         print(f"{card_line}: ground() {g_ms['ground_ms']:.1f} ms", flush=True)
 
     with phase("color_alter record"):
@@ -5086,6 +5286,25 @@ def main() -> int:
         row["launches_bucket"] = ch["launches"]["bucket"][row["name"]]
         row["launches_vila"] = vila_launches[row["name"]]
         row["launches_llm"] = llm_launches[row["name"]]
+    # K5 at the main path's shapes, each row with its launches in one call of
+    # the path that gives it that shape (one UNet call of the bucket, one
+    # ground()) and at that shape in the slice's, the chunk's and the
+    # bucket's runs (`k5_tally`); the scorers' launches in the chunk and the
+    # bucket, at any shape
+    bucket_k5 = ch["launches"]["bucket"]["k5"]
+    k5_paths = {"unet_b12": {k: n // STEPS for k, n in bucket_k5.items() if k != "plain"},
+                "ground": g_k5}
+    for tag, r, path, key in k5_rows:
+        row = entry("layer_norm", "anyedit_tpu_torch/csrc/layer_norm.cu",
+                    "none: anyedit_tpu/models/layers.py:147 LayerNorm is XLA",
+                    k5_paths[path].get(key, 0), [(tag, r)])
+        row["path"] = K5_PATHS[path]
+        row["bound_share"] = r["bound_share"]
+        row["launches_slice"] = launches["k5"].get(key, 0)
+        for run in ("chunk", "bucket"):
+            row[f"launches_{run}"] = ch["launches"][run]["k5"].get(key, 0)
+            row[f"launches_{run}_scorers"] = ch["launches"][run]["layer_norm_scorers"]
+        kernels.append(row)
     # K1 runs at no shape on the geometry, UltraEdit and caption-pair paths:
     # 0 launches
     kernels[0]["launches_geometry"] = geo_launches["flash_nomax"]
@@ -5160,10 +5379,13 @@ def main() -> int:
     grad_launches.update({f"{sh} {'silu' if silu else 'plain'}":
                           k2_step.get((sh, silu, "torch.bfloat16"), 0)
                           for sh, silu in K2_GRAD_SHAPES})
+    grad_launches.update({str(sh): disconnect["k5_by_shape"].get(
+        (sh, "torch.bfloat16", "torch.bfloat16"), 0) for sh in K5_GRAD_SHAPES})
     for name, tag, r in grad_rows:
         row = entry(name, *sources[name], grad_launches[tag], [(tag, r)])
         row.update({"pass": "backward: autograd of the plain version on the saved inputs "
-                            "(sdpa for K1, group_norm_plain for K2), no kernel",
+                            "(sdpa for K1, group_norm_plain for K2, layer_norm_plain for "
+                            "K5), no kernel",
                     "fwd_ms": r["fwd_ms"], "fwd_bwd_ms": r["fwd_bwd_ms"],
                     "library_fwd_bwd_ms": r["library_fwd_bwd_ms"], "rel_l2": r["rel_l2"],
                     "path": "distillation step (batch 2, 512 px: the student with grad, the "

@@ -1,6 +1,6 @@
 """The port's hand kernels and their wrappers, without JAX.
 
-Tests marked `cuda` hold K1-K4 against their plain versions, and the W8A8
+Tests marked `cuda` hold K1-K5 against their plain versions, and the W8A8
 int8 contraction against float64, on the card, and skip without one. This file imports no JAX, so it also runs on a
 machine with the card and no JAX:
 
@@ -8,13 +8,17 @@ machine with the card and no JAX:
 """
 
 import math
+import re
 
 import pytest
 import torch
 
+from anyedit_tpu_torch.models.layers import LayerNorm
+from anyedit_tpu_torch.ops import _build
 from anyedit_tpu_torch.ops import attention as tattn
 from anyedit_tpu_torch.ops import groupnorm as tgn
 from anyedit_tpu_torch.ops import kernel_check as kc
+from anyedit_tpu_torch.ops import layernorm as tln
 
 torch.set_num_threads(1)
 
@@ -76,7 +80,7 @@ def test_flash_nomax_clamp_saturates_not_overflows():
 
 
 @pytest.mark.parametrize("op", ["flash_nomax", "group_norm", "flash_attention",
-                                "flash_int8", "int8_matmul"])
+                                "flash_int8", "int8_matmul", "layer_norm"])
 def test_wrappers_raise_off_cpu_and_cuda(op):
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel or raises, never falls back."""
@@ -85,12 +89,135 @@ def test_wrappers_raise_off_cpu_and_cuda(op):
         if op == "group_norm":
             c = torch.zeros(64, device="meta")
             tgn.group_norm(x, c, c, num_groups=8)
+        elif op == "layer_norm":
+            c = torch.zeros(8, device="meta")
+            tln.layer_norm(x, c, c, 1e-5, torch.bfloat16)
         elif op == "int8_matmul":
             from anyedit_tpu_torch.ops.quant import int8_matmul
             a = torch.zeros(32, 8, dtype=torch.int8, device="meta")
             int8_matmul(a, a.t())
         else:
             getattr(tattn, op)(x, x, x, 1.0)
+
+
+@pytest.mark.parametrize("x_dtype,dtype", [
+    (torch.float16, torch.bfloat16), (torch.float64, torch.float32),
+    (torch.float32, torch.float16), (torch.bfloat16, torch.float64)])
+def test_layer_norm_raises_on_dtypes_k5_does_not_take(x_dtype, dtype):
+    """Off the CPU, `layer_norm` takes bf16 or fp32 x and gives bf16 or fp32
+    (K5's four instantiations); any other dtype raises before the device is
+    looked at."""
+    x = torch.zeros(4, 64, dtype=x_dtype, device="meta")
+    c = torch.zeros(64, device="meta")
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tln.layer_norm(x, c, c, 1e-5, dtype)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_plain_route_is_the_layernorm_arithmetic(x_dtype, dtype):
+    """On CPU tensors `layer_norm` and `models/layers.LayerNorm` compute what
+    `LayerNorm.forward` computed before K5, bit for bit, with and without
+    grad (the direct autograd of the plain ops, not K5's Function), and
+    launch nothing."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randn(3, 5, 48, generator=g) * 4 + 7).to(x_dtype)
+    w = torch.randn(48, generator=g) * 0.1 + 1
+    b = torch.randn(48, generator=g) * 0.1
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    want = ((xf - mean) * torch.rsqrt(var + 1e-6) * w + b).to(dtype)
+    m = LayerNorm(48, eps=1e-6, dtype=dtype)
+    m.load_state_dict({"weight": w, "bias": b})
+    before = tln.layer_norm.launches
+    with torch.no_grad():
+        outs = [tln.layer_norm(x, w, b, 1e-6, dtype), m(x)]
+    outs.append(m(x.clone().requires_grad_()))
+    for got in outs:
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert type(outs[-1].grad_fn).__name__ != "_LayerNormFnBackward"
+    assert tln.layer_norm.launches == before
+
+
+def test_layer_norm_function_routes_and_recomputes(monkeypatch):
+    """Off the CPU, `layer_norm` under grad with an input that requires it
+    goes through `_LayerNormFn`, and otherwise makes the direct call; the
+    Function's backward is the plain version's autograd on the saved
+    inputs, for whichever of x, weight and bias need it. The launch is
+    replaced by the plain forward, so this runs on meta tensors (the route)
+    and CPU tensors (the gradients)."""
+    calls = []
+
+    def launch(x, w, b, eps, dtype):
+        calls.append(x.device.type)
+        return tln.layer_norm_plain(x, w, b, eps, dtype).detach()
+    monkeypatch.setattr(tln, "_layer_norm_launch", launch)
+    x, c = torch.zeros(2, 8, device="meta"), torch.zeros(8, device="meta")
+    assert tln.layer_norm(x, c, c, 1e-5, torch.bfloat16).grad_fn is None
+    with torch.no_grad():
+        assert tln.layer_norm(x, c.requires_grad_(), c, 1e-5, torch.bfloat16).grad_fn is None
+    y = tln.layer_norm(x, c, c, 1e-5, torch.bfloat16)
+    assert type(y.grad_fn).__name__ == "_LayerNormFnBackward" and calls == ["meta"] * 3
+
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(6, 40, generator=g) * 3 + 2).to(torch.bfloat16)
+    w = torch.randn(40, generator=g) * 0.1 + 1
+    b = torch.randn(40, generator=g) * 0.1
+    dy = torch.randn(6, 40, generator=g).to(torch.bfloat16)
+    for need in ((True, True, True), (True, False, False), (False, True, True)):
+        ins = [t.clone().requires_grad_(r) for t, r in zip((x, w, b), need)]
+        wrt = [t for t in ins if t.requires_grad]
+        y = tln._LayerNormFn.apply(launch, tln.layer_norm_plain, *ins, 1e-5, torch.bfloat16)
+        got = torch.autograd.grad(y, wrt, dy)
+        ref = torch.autograd.grad(tln.layer_norm_plain(*ins, 1e-5, torch.bfloat16), wrt, dy)
+        assert all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+# The LayerNorm widths of the port's models: GroundingDINO and SAM's neck
+# (256), the SD UNets (320, 640, 1280), BERT, BLIP-2's Q-Former and CLIP-L
+# text (768), CLIP-L vision (1024), EVA ViT-g (1408), DINOv2-g (1536), SAM
+# ViT-H (1280), Swin-B's stages and patch merges (128 to 2048), SAM's
+# upscaling (64).
+MODEL_LN_WIDTHS = [64, 128, 256, 320, 512, 640, 768, 1024, 1280, 1408, 1536, 2048]
+
+
+@pytest.mark.parametrize("c", MODEL_LN_WIDTHS + [20, 2056, 4096])
+def test_k5_plan_covers_each_row(c):
+    """K5's launch plan in bf16 and fp32, vector and scalar (up to 2,048,
+    the scalar path's reach): the threads' accesses cover the row (no
+    element left, none past a whole access),
+    at most 8 accesses a thread, 1 to 8 warps a row in powers of two, at
+    most 256 threads a block, several rows a block only for one-warp rows;
+    one warp a row at every model width in bf16 (the registers hold it)."""
+    for eb in (2, 4):
+        for vector in (True, False):
+            if vector and c * eb % 16 or not vector and c > 2048:
+                continue
+            vec, vpl, warps, rpb = tln._k5_plan(c, eb, vector)
+            assert vec == (16 // eb if vector else 1) and c % vec == 0
+            assert 32 * warps * vpl >= c // vec > 32 * warps * (vpl - 1)
+            assert 1 <= vpl <= 8 and warps in (1, 2, 4, 8) and 32 * warps * rpb <= 256
+            assert rpb == 1 or warps == 1
+            if vector and eb == 2 and c in MODEL_LN_WIDTHS:
+                assert warps == 1
+
+
+def test_k5_plan_refuses_rows_past_its_registers():
+    with pytest.raises(ValueError, match="at most 2048"):
+        tln._k5_plan(2056, 2, False)
+
+
+def test_signatures_hold_every_entry_point():
+    """`_build._SIGNATURES` holds each C entry point of csrc/*.cu that
+    returns an error code (K5's `anyedit_layer_norm` among them), with one
+    argument type per parameter."""
+    found = {}
+    for src in sorted(_build.CSRC_DIR.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert "anyedit_layer_norm" in found
+    assert found == {name: len(types) for name, types in _build._SIGNATURES.items()}
 
 
 # Every GroupNorm shape of the main path (NCHW): the SD1.5 IP2P UNet at
@@ -339,6 +466,54 @@ def test_group_norm_kernel_matches_plain(cuda, shape, silu, dtype):
         assert float(err.max()) <= 1e-5
     else:
         assert float(err.max()) <= 5e-2 and float(err.mean()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,x_dtype,dtype,offset", [
+    ((49152, 320), torch.bfloat16, torch.bfloat16, 0), ((300, 1280), torch.bfloat16,
+                                                         torch.bfloat16, 0),
+    ((1000, 256), torch.float32, torch.bfloat16, 0), ((77, 768), torch.float32,
+                                                      torch.float32, 0),
+    ((64, 2048), torch.bfloat16, torch.float32, 0), ((33, 4096), torch.bfloat16,
+                                                     torch.bfloat16, 0),
+    ((33, 4096), torch.float32, torch.float32, 0), ((50, 37), torch.bfloat16,
+                                                    torch.bfloat16, 0),
+    ((50, 320), torch.bfloat16, torch.bfloat16, 1)])
+def test_layer_norm_kernel_matches_plain(cuda, shape, x_dtype, dtype, offset):
+    """K5 vs its plain version on the same input, one launch: a bf16 output
+    within one bf16 rounding, an fp32 one within 1e-5 of the largest
+    |output|. One-warp rows (320 to 2,048), rows of 2 to 4 warps (4,096),
+    the scalar path where C is not a multiple of the vector (37) or x
+    starts off a 16-byte boundary (`offset` elements in), all four dtype
+    pairs."""
+    x, w, b = kc._layer_norm_inputs((shape[0], shape[1] + offset), x_dtype, cuda, 3)
+    x = x.flatten()[offset:offset + shape[0] * shape[1]].view(shape)
+    w, b = w[:shape[1]], b[:shape[1]]
+    before = tln.layer_norm.launches
+    out = tln.layer_norm(x, w, b, 1e-5, dtype)
+    torch.cuda.synchronize()
+    assert tln.layer_norm.launches == before + 1 and out.dtype == dtype
+    ref = tln.layer_norm_plain(x, w, b, 1e-5, dtype)
+    assert bool(torch.isfinite(out).all())
+    if dtype == torch.bfloat16:
+        assert kc._bf16_ulps(out, ref) <= 1.0
+    else:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_takes_a_strided_input(cuda):
+    """The transformer's token view of NCHW activations (B, HW, C) is not
+    contiguous: `LayerNorm` copies it first and K5 agrees with the plain
+    version on it."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(2, 320, 16, 16, generator=g, device=cuda).to(torch.bfloat16)
+    x = x.permute(0, 2, 3, 1).reshape(2, 256, 320)
+    assert not x.is_contiguous()
+    m = LayerNorm(320, device=cuda)
+    with torch.no_grad():
+        out = m(x)
+        assert kc._bf16_ulps(out, tln.layer_norm_plain(x, m.weight, m.bias)) <= 1.0
 
 
 @pytest.mark.cuda

@@ -35,6 +35,7 @@ from anyedit_tpu_torch.models import layers
 from anyedit_tpu_torch.models.layers import AttnMeta
 from anyedit_tpu_torch.models.unet_sd import SD15_UNET, TINY_UNET, UNet2DCondition
 from anyedit_tpu_torch.ops.groupnorm import group_norm_plain
+from anyedit_tpu_torch.ops.layernorm import layer_norm_plain
 from anyedit_tpu_torch.ops.resize import resize_image
 from anyedit_tpu_torch.schedulers import make_noise_schedule
 from anyedit_tpu_torch.weights import bridge
@@ -192,8 +193,10 @@ def test_sd15_unet_self_attention_sites(monkeypatch):
     """The full-width SD15_UNET, built on the meta device, reaches 16
     self-attention sites a call (down 6, mid 1, up 9: MASA_LAYER = 12 lets
     the swap act on the last 4, the last up site at 32 x 32 and the three at
-    64 x 64), in the JAX package's order."""
+    64 x 64), in the JAX package's order. The norms take their plain
+    versions: K2 and K5 take no meta tensors."""
     monkeypatch.setattr(layers, "group_norm", group_norm_plain)
+    monkeypatch.setattr(layers, "layer_norm", layer_norm_plain)
     unet = UNet2DCondition(SD15_UNET, device="meta")
     x = torch.empty((4, 64, 64, 4), device="meta")
     names = _site_order(unet, x, torch.empty((4,), device="meta"),
