@@ -48,7 +48,9 @@ from typing import Any, Optional
 import torch
 import torch.autograd.profiler as _profiler
 
-# the executor's, the grounder's, the IP2P editor's and the scorers' spans
+# the executor's, the grounder's, the editors' (IP2P: `ip2p`, `unet`; the
+# Flux pair: `flux_pair`, `t5`, `flux_text`, `flux`; both: `vae_encode`,
+# `vae_decode`) and the scorers' spans
 LAYERS = ("executor", "grounding", "editor", "scorers")
 HOST_SYNC = "host_sync"
 # the start of the warning CUDA's sync debug mode raises at a synchronisation

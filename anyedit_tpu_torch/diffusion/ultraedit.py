@@ -23,6 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
+from anyedit_tpu_torch.core import trace
 from anyedit_tpu_torch.schedulers.flow import flow_add_noise, flow_init, flow_step
 
 # v_fn(x_cat (B, h, w, C), t (B,), context, pooled) -> velocity (B, h, w, C_out)
@@ -77,14 +78,19 @@ def flux_sample(v_fn: VFn, noise: torch.Tensor, ctx: torch.Tensor, pooled: torch
                 num_steps: int = 4, shift: float = 1.0,
                 guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
     """noise: the start latents (B, h, w, C), N(0, 1). Returns the sampled
-    latents fp32. `guidance` (B,) goes to guidance-distilled models (FLUX_DEV)."""
+    latents fp32. `guidance` (B,) goes to guidance-distilled models (FLUX_DEV).
+    Each velocity call is a `flux` span (attrs `rows`, `tokens`: the joint
+    sequence, text and the image's patches of `v_fn.cfg.patch`, and `step`)."""
     st = flow_init(num_steps, shift=shift, device=noise.device)
     lat = noise.float()
-    b = lat.shape[0]
+    b, h, w = lat.shape[:3]
+    patch = getattr(getattr(v_fn, "cfg", None), "patch", 1)
+    tokens = ctx.shape[1] + (h // patch) * (w // patch)
     for i in range(num_steps):
         t = st.timesteps[i].expand(b)
-        v = v_fn(lat, t, ctx, pooled) if guidance is None else \
-            v_fn(lat, t, ctx, pooled, guidance)
+        with trace.span("flux", "editor", rows=b, tokens=tokens, step=i):
+            v = v_fn(lat, t, ctx, pooled) if guidance is None else \
+                v_fn(lat, t, ctx, pooled, guidance)
         lat = flow_step(st, i, v, lat)
     return lat
 

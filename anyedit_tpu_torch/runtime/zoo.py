@@ -57,10 +57,10 @@ returns `run(ori_caption, tar_caption, keyword, seed)` (20 steps under an
 AttentionStore, the keyword's accumulated cross-attention map thresholded
 into a canvas-size mask). `flux_pair_fn()` returns `pair(caption_a,
 caption_b, seed)` and `text2img_fn()` `t2i(prompt, seed)`: 4 Flux steps from
-the seed's noise, conditioned on T5 (77 tokens) and CLIP-L's unprojected
-pooled output, decoded by the Flux VAE; the Flux in W8A8 with
-`quant_diffusion`. Each draws its start noise from `torch.Generator(seed)`
-unless given `noise=`.
+the seed's noise, conditioned on T5 (`flux_t5_len` tokens, 77 by default)
+and CLIP-L's unprojected pooled output, decoded by the Flux VAE; the Flux in
+W8A8 with `quant_diffusion`. Each draws its start noise from
+`torch.Generator(seed)` unless given `noise=`.
 
 The SDXL refine slots run `diffusion/sampling.py::sample_img2img` on the
 refine UNet (`refine_unet`, slot "unet_refine"; W8A8 with
@@ -181,6 +181,7 @@ from anyedit_tpu_torch.models.vae import (
 )
 from anyedit_tpu_torch.models.vila import VILA_1_5, VilaConfig, VilaVQA
 from anyedit_tpu_torch.ops.canny import canny, rgb_to_gray
+from anyedit_tpu_torch.ops.cuda_graph import Graphed
 from anyedit_tpu_torch.ops.quant import quantize_state_dict
 from anyedit_tpu_torch.ops.resize import (
     denormalize_to_u8, imagenet_normalize, normalize_to_unit, resize_image, to_u8,
@@ -218,6 +219,10 @@ class ZooConfig:
     flux_text: T5Config = T5_XXL               # SD3's and Flux's T5 text encoder
     mmdit: MMDiTConfig = SD3_ULTRAEDIT
     flux: FluxConfig = FLUX_SCHNELL
+    # T5 tokens of the Flux samplers' context (ids zero-padded, no mask).
+    # FluxPipeline gives schnell 256 (`max_sequence_length`); 77 is the JAX
+    # zoo's cut, kept as the default for parity (ROADMAP queue 3). SD3 keeps 77.
+    flux_t5_len: int = 77
     depth_cfg: DPTConfig = DEPTH_ANYTHING_L    # Depth-Anything-V2 (material_transfer)
     anydoor_unet: UNetConfig = SD21_ANYDOOR_UNET   # AnyDoor's ControlLDM (visual_reference)
     # AnyDoor's reference encoder and the DINO scorer: the JAX zoo takes
@@ -485,13 +490,14 @@ class ModelZoo:
         raw = self._text_raw("clip_text", self.cfg.text)
         return lambda text: raw(text)[0]
 
-    def _t5(self):
-        """text -> T5 hidden states (1, 77, dim) fp32 (SD3's and Flux's
-        long-text context): 77 hash ids and no mask, as the JAX zoo's `_t5`
-        (FluxPipeline gives schnell 256 tokens: ROADMAP queue 3)."""
+    def _t5(self, max_len: int = 77):
+        """text -> T5 hidden states (1, max_len, dim) fp32 (SD3's and Flux's
+        long-text context): `max_len` ids, zero-padded, and no mask, as the
+        JAX zoo's `_t5` at its 77 (SD3 keeps 77; Flux takes
+        `ZooConfig.flux_t5_len`)."""
         t5 = self._get("t5", lambda: self._load(
             T5Encoder(self.cfg.flux_text, device=self.device), "t5", bridge.t5_state_dict))
-        return lambda text: t5(torch.from_numpy(self._t5_ids(text, 77)).to(self.device))
+        return lambda text: t5(torch.from_numpy(self._t5_ids(text, max_len)).to(self.device))
 
     def _vae_cfg(self, slot: str) -> VAEConfig:
         return {"vae": self.cfg.vae, "sdxl_vae": self.cfg.sdxl_vae,
@@ -1318,15 +1324,19 @@ class ModelZoo:
 
     def _flux_sampler(self):
         """`sample(prompt, seed, steps=4, out_hw=None, noise=None) ->
-        image_u8`: context = T5 at 77 tokens in bf16, pooled = CLIP-L's
-        unprojected pooled output (FluxPipeline's CLIPTextModel
-        pooler_output), 4 flow steps at shift 1.0, one Flux call a step at
-        batch 1, the Flux VAE's decode, lanczos to `out_hw` (the canvas)."""
+        image_u8`: context = T5 at `flux_t5_len` tokens in bf16 (spans
+        `t5`), pooled = CLIP-L's unprojected pooled output (FluxPipeline's
+        CLIPTextModel pooler_output; span `flux_text`), 4 flow steps at
+        shift 1.0, one Flux call a step at batch 1 (spans `flux`), the Flux
+        VAE's decode, lanczos to `out_hw` (the canvas). On a CUDA device the
+        Flux call is replayed from a CUDA graph (`ops/cuda_graph.py`): at
+        batch 1 its launches take the host as long as the card takes to run
+        them."""
         def build():
             c = self.cfg
-            flux = self._flux()
+            flux = Graphed(self._flux())
             self._vae_named("flux_vae")
-            t5 = self._t5()
+            t5 = self._t5(c.flux_t5_len)
             clip = self._text_raw("clip_text", c.text)
             size = c.canvas.edit_size
             hw = size // c.canvas.latent_down
@@ -1334,10 +1344,12 @@ class ModelZoo:
             @torch.inference_mode()
             def sample(prompt: str, seed: int, steps: int = 4, out_hw=None,
                        noise: Optional[torch.Tensor] = None) -> np.ndarray:
-                ctx = t5(prompt).to(torch.bfloat16)
+                with trace.span("t5", "editor"):
+                    ctx = t5(prompt).to(torch.bfloat16)
                 if ctx.shape[-1] != c.flux.context_dim:
                     raise ValueError("flux_text.dim must equal flux.context_dim")
-                _, pooled, _ = clip(prompt)
+                with trace.span("flux_text", "editor"):
+                    _, pooled, _ = clip(prompt)
                 z0 = self._start_noise((1, hw, hw, c.flux.in_channels), seed, noise)
                 out = flux_sample(flux, z0, ctx, pooled, num_steps=steps)
                 return self._from_latents(out, [out_hw or (size, size)], "flux_vae")[0]
@@ -1352,8 +1364,9 @@ class ModelZoo:
 
         def pair(caption_a: str, caption_b: str, seed: int, steps: int = 4,
                  noise: Optional[torch.Tensor] = None):
-            return (sample(caption_a, seed, steps, noise=noise),
-                    sample(caption_b, seed, steps, noise=noise))
+            with trace.span("flux_pair", "editor"):
+                return (sample(caption_a, seed, steps, noise=noise),
+                        sample(caption_b, seed, steps, noise=noise))
         return pair
 
     def text2img_fn(self):

@@ -2369,8 +2369,9 @@ def flux_phase(dev, szoo, tb):
     modulations drawn live, `live_modulations_` seed 9, since at the seeded
     init, as in the JAX package, the captions do not reach the image), then
     the three synthesized types in one chunk (`grounding_batch=3`): every
-    record a success, K1 0. Then one Flux call at batch 1 (77 text + 1,024
-    image tokens; CUDA events) beside `flux_bound_ms`; the W8A8 check keeps
+    record a success, K1 0. Then one Flux call at batch 1 (`ZooConfig.
+    flux_t5_len` text tokens, 77 by default, + 1,024 image tokens; CUDA
+    events) beside `flux_bound_ms`; the W8A8 check keeps
     its output. Returns ((launches, tally), numbers, args, bf16 velocity)."""
     import torch
     from anyedit_tpu_torch.core.schema import InstructionRecord
@@ -2400,7 +2401,7 @@ def flux_phase(dev, szoo, tb):
     t = torch.full((1,), 500.0, device=dev)
     text = SYNTH_RECORDS["textual_change"]["output"]
     with torch.inference_mode():
-        ctx = szoo._t5()(text).to(torch.bfloat16)
+        ctx = szoo._t5(c.flux_t5_len)(text).to(torch.bfloat16)
         _, pooled, _ = szoo._text_raw("clip_text", c.text)(text)
         args = (x, t, ctx, pooled)
         out = flux(*args).float()

@@ -748,10 +748,11 @@ def bench_masactrl(dev, runs: int = 3) -> list[dict]:
 def bench_flux(dev, runs: int = 3) -> list[dict]:
     """The Flux pair slot at full width (`ModelZoo(ZooConfig())`: FLUX_SCHNELL,
     T5-XXL, CLIP-L, the Flux VAE; seeded weights on the card), as
-    `bench_ground` times its parts: one Flux call at batch 1 (77 text +
-    1,024 image tokens), one `flux_pair` (2 x 4 steps, two T5 and CLIP
-    encodes, two Flux VAE decodes) and one textual_change record. The last
-    row adds the run's peak GiB."""
+    `bench_ground` times its parts: one Flux call at batch 1
+    (`ZooConfig.flux_t5_len` text tokens, 77 by default, + 1,024 image
+    tokens), one `flux_pair` (2 x 4 steps, two T5 and CLIP encodes, two Flux
+    VAE decodes) and one textual_change record. The last row adds the run's
+    peak GiB."""
     import torch
     from anyedit_tpu_torch.edits.types import Toolbox
     from anyedit_tpu_torch.runtime.zoo import ModelZoo, ZooConfig
@@ -765,7 +766,7 @@ def bench_flux(dev, runs: int = 3) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(6)
     text = SYNTH_RECORDS["textual_change"]["output"]
     with torch.inference_mode():
-        ctx = zoo._t5()(text).to(torch.bfloat16)
+        ctx = zoo._t5(c.flux_t5_len)(text).to(torch.bfloat16)
         _, pooled, _ = zoo._text_raw("clip_text", c.text)(text)
     args = (torch.randn(1, hw, hw, c.flux.in_channels, generator=g, device=dev),
             torch.full((1,), 500.0, device=dev), ctx, pooled)
