@@ -1,4 +1,4 @@
-// PTX wrappers shared by the attention kernels (K1, K3, K4): shared-memory
+// PTX wrappers shared by the attention kernels (K1, K3, K4, K6): shared-memory
 // addresses, 16-byte `cp.async`, `ldmatrix`, bf16 `mma.sync.m16n8k16`,
 // `ex2.approx`, and fp32 / bf16 element access. Each kernel source includes
 // this header; its functions are internal to each translation unit.

@@ -80,15 +80,18 @@ def flux_sample(v_fn: VFn, noise: torch.Tensor, ctx: torch.Tensor, pooled: torch
     """noise: the start latents (B, h, w, C), N(0, 1). Returns the sampled
     latents fp32. `guidance` (B,) goes to guidance-distilled models (FLUX_DEV).
     Each velocity call is a `flux` span (attrs `rows`, `tokens`: the joint
-    sequence, text and the image's patches of `v_fn.cfg.patch`, and `step`)."""
+    sequence, text and the image's patches of `v_fn.cfg.patch`, `step`, and
+    `k6`: `v_fn.k6_launches`, the K6 launches of one call as the model
+    reports them, 0 for a model without it)."""
     st = flow_init(num_steps, shift=shift, device=noise.device)
     lat = noise.float()
     b, h, w = lat.shape[:3]
     patch = getattr(getattr(v_fn, "cfg", None), "patch", 1)
     tokens = ctx.shape[1] + (h // patch) * (w // patch)
+    k6 = getattr(v_fn, "k6_launches", 0)
     for i in range(num_steps):
         t = st.timesteps[i].expand(b)
-        with trace.span("flux", "editor", rows=b, tokens=tokens, step=i):
+        with trace.span("flux", "editor", rows=b, tokens=tokens, step=i, k6=k6):
             v = v_fn(lat, t, ctx, pooled) if guidance is None else \
                 v_fn(lat, t, ctx, pooled, guidance)
         lat = flow_step(st, i, v, lat)

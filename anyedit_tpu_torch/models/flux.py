@@ -12,7 +12,10 @@ The residual streams are fp32; block Linears, the patch, context and output
 projections run in `dtype`; the modulations and the timestep, guidance and
 pooled embeddings are fp32 Linears, as the JAX package's `Dense(...,
 dtype=float32)`. LayerNorms are affine-free with eps 1e-6; GELU is the tanh
-form; every attention is the plain `sdpa` (`sdpa_xla` in the JAX package).
+form. The joint attention is `sdpa_xla` in the JAX package; here it takes
+K6 (`flash_sdpa`) where `takes_k6` holds (CUDA, bf16, head dim 128: the
+published width, W8A8 included) and the plain `sdpa` otherwise (the CPU,
+fp32, `TINY_FLUX`'s head dim 16).
 
 Submodules carry the diffusers `FluxTransformer2DModel` names (x_embedder,
 context_embedder, time_text_embed.*, transformer_blocks.N.{norm1,
@@ -38,7 +41,7 @@ from torch import nn
 
 from anyedit_tpu_torch.models.layers import timestep_embedding
 from anyedit_tpu_torch.models.mmdit import _FFN, _AdaLN, _MLPEmbed, _RMSNormQK, _ln, modulate
-from anyedit_tpu_torch.ops.attention import sdpa
+from anyedit_tpu_torch.ops.attention import flash_sdpa, sdpa
 from anyedit_tpu_torch.ops.quant import make_dense
 
 
@@ -96,6 +99,28 @@ def make_ids(gh: int, gw: int, txt_len: int, device=None) -> torch.Tensor:
     return torch.cat([torch.zeros((txt_len, 3), **f32), img], dim=0)
 
 
+def takes_k6(device_type: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Flux's attention route: K6 on CUDA bf16 at head dim 128, `sdpa`
+    everywhere else."""
+    return device_type == "cuda" and dtype == torch.bfloat16 and head_dim == 128
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The joint attention of both block types, heads merged: (B, L, H D)."""
+    attend = flash_sdpa if takes_k6(q.device.type, q.dtype, q.shape[-1]) else sdpa
+    return _merge(attend(q, k, v))
+
+
+def k6_per_call(cfg: "FluxConfig", device) -> int:
+    """K6 launches of one Flux call on `device`: one a block where the
+    route takes it (q, k and v are in `cfg.dtype`), else 0. `Flux.
+    k6_launches` is this on the module's own device."""
+    head_dim = cfg.dim // cfg.heads
+    if not takes_k6(torch.device(device).type, cfg.dtype, head_dim):
+        return 0
+    return cfg.double_depth + cfg.single_depth
+
+
 def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     b, l, d = t.shape
     return t.reshape(b, l, heads, d // heads).permute(0, 2, 1, 3)
@@ -148,7 +173,7 @@ class DoubleBlock(nn.Module):
                          (a.norm_added_q, a.norm_added_k))
         q = apply_rope(torch.cat([qt, qi], dim=2), cos, sin)    # text first
         k = apply_rope(torch.cat([kt, ki], dim=2), cos, sin)
-        o = _merge(sdpa(q, k, torch.cat([vt, vi], dim=2)))
+        o = _attend(q, k, torch.cat([vt, vi], dim=2))
         lt = txt.shape[1]
         ot, oi = o[:, :lt], o[:, lt:]
 
@@ -186,7 +211,7 @@ class SingleBlock(nn.Module):
         h = modulate(_ln(x), shift, scale).to(c.dtype)
         q = apply_rope(a.norm_q(_heads(a.to_q(h), c.heads)), cos, sin)
         k = apply_rope(a.norm_k(_heads(a.to_k(h), c.heads)), cos, sin)
-        o = _merge(sdpa(q, k, _heads(a.to_v(h), c.heads)))
+        o = _attend(q, k, _heads(a.to_v(h), c.heads))
         mlp = F.gelu(self.proj_mlp(h), approximate="tanh")
         return x + gate[:, None] * self.proj_out(torch.cat([o, mlp], dim=-1)).float()
 
@@ -212,6 +237,13 @@ class Flux(nn.Module):
                                                         for _ in range(c.single_depth)])
         self.norm_out = _AdaLN(c.dim, 2, device)
         self.proj_out = nn.Linear(c.dim, c.patch ** 2 * c.in_channels, **kw)
+
+    @property
+    def k6_launches(self) -> int:
+        """K6 launches of one call on the parameters' device
+        (`k6_per_call`): known without running the call, so it holds while
+        the call replays from a CUDA graph, where no wrapper counts."""
+        return k6_per_call(self.cfg, next(self.parameters()).device)
 
     def forward(self, x, t, context, pooled, guidance: Optional[torch.Tensor] = None):
         c = self.cfg

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "anyedit_k4_quantize": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "anyedit_flash_int8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "anyedit_layer_norm": (_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _I, _P),
+    "anyedit_flash_sdpa": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

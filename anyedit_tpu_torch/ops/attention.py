@@ -6,6 +6,9 @@ in the JAX package; the kernels take (BH, L, D).
   * `sdpa` — plain attention with fp32 logits and softmax, probabilities
     cast to v's dtype (mirrors `sdpa_xla`). Cross-attention, the VAE mid
     attention (D = 512) and every shape off K1's route take it.
+  * `flash_sdpa` — `sdpa`'s function with an online softmax and no bias,
+    through K6 (`csrc/flash_sdpa.cu`); Flux's joint attention at D = 128
+    takes it (`models/flux.py::takes_k6`).
   * `flash_nomax` — unmasked self-attention through K1
     (`csrc/flash_nomax.cu`).
   * `flash_attention` — online-softmax attention in fp32 with key padding
@@ -28,6 +31,7 @@ K3 has no VJP: `flash_attention` raises when a gradient is asked for.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -45,6 +49,8 @@ _K1_BLOCK = 64
 _K3_MAX_D = 256
 _K4_MAX_D = 128
 _K4_TILE = 64   # K4's key tile: its blocks are whole tiles
+_K6_BLOCK = 128  # K6's key tile: the online softmax's blocks
+_K6_D = 128
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,6 +64,86 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(v.dtype), v).to(q.dtype)
+
+
+def flash_sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """K6's arithmetic in plain PyTorch. q, k, v: (B, H, L, D).
+
+    Logits in fp32 from q and k as they are, in base 2 (times scale *
+    log2(e)); an online softmax over 128-key blocks, each block's p taken
+    against the running row max and the earlier sums rescaled; for bf16
+    inputs p is rounded to bf16 for the P.V product (the row sums take the
+    fp32 p), for fp32 inputs it stays fp32. The sum is divided out at the
+    end and the result cast to q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    c = scale * _LOG2E
+    qf, kf, vf = q.float(), k.float(), v.float()
+    acc = torch.zeros_like(qf)
+    m = torch.full(q.shape[:-1] + (1,), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, k.shape[-2], _K6_BLOCK):
+        t = torch.matmul(qf, kf[..., k0:k0 + _K6_BLOCK, :].transpose(-1, -2)) * c
+        m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if q.dtype == torch.bfloat16:
+            p = p.to(torch.bfloat16).float()
+        acc = acc * corr + torch.matmul(p, vf[..., k0:k0 + _K6_BLOCK, :])
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float | None = None) -> torch.Tensor:
+    """`sdpa`'s function without a bias, by an online softmax. q, k, v:
+    (B, H, L, D), one shape; returns (B, H, L, D).
+
+    CPU tensors take `flash_sdpa_plain`. CUDA tensors launch K6, which
+    takes bf16 with D = 128, read through their strides with unit stride in
+    D (each stride a multiple of 8, each base 16-byte aligned); anything
+    else raises. The result is a (B, H, L, D) view of a (B, L, H, D) buffer,
+    so merging the heads back to (B, L, H D) copies nothing. K6 has no VJP:
+    under grad it raises. It replaces no Pallas kernel: the JAX package
+    runs this attention as `sdpa_xla`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _wants_grad(q, k, v):
+        raise RuntimeError("flash_sdpa (K6) has no VJP: take sdpa or run under "
+                           "torch.no_grad()")
+    if q.device.type == "cpu":
+        return flash_sdpa_plain(q, k, v, scale)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v)):
+        raise ValueError(f"flash_sdpa: unsupported devices {q.device}, {k.device}, {v.device}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"flash_sdpa: the kernel takes bf16, got "
+                        f"{[t.dtype for t in (q, k, v)]}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != _K6_D:
+        raise ValueError(f"flash_sdpa: q/k/v must share one (B, H, L, {_K6_D}) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"flash_sdpa: {name} needs unit stride in D, strides a "
+                             f"multiple of 8 and a 16-byte aligned base, got strides "
+                             f"{t.stride()}")
+    b, h, l, d = q.shape
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=dev).permute(0, 2, 1, 3)
+
+    def strides(t):
+        return (ctypes.c_longlong * 3)(*t.stride()[:3])
+    err = _build.library().anyedit_flash_sdpa(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides(q), strides(k),
+        strides(v), strides(out), b, h, l, float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("flash_sdpa", err)
+    flash_sdpa.launches += 1
+    return out
+
+
+flash_sdpa.launches = 0
 
 
 def flash_nomax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -23,12 +23,16 @@ import torch
 class Graphed:
     """`Graphed(module)(*tensors)`: `module(*tensors)`, from a CUDA graph
     where the tensors are on a CUDA device and no gradient is recorded.
-    `cfg` is the module's."""
+    Other attributes (`cfg`, `k6_launches`) are read from the module."""
 
     def __init__(self, module: torch.nn.Module):
         self.module = module
-        self.cfg = getattr(module, "cfg", None)
         self.graphs: dict = {}
+
+    def __getattr__(self, name: str):
+        if name == "module":    # not set yet: no module to read from
+            raise AttributeError(name)
+        return getattr(self.module, name)
 
     def __call__(self, *args: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled() or not all(isinstance(a, torch.Tensor) and a.is_cuda

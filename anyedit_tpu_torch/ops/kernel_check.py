@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from anyedit_tpu_torch.ops.attention import (
     flash_attention, flash_attention_plain, flash_int8, flash_int8_plain,
-    flash_nomax, flash_nomax_plain, sdpa,
+    flash_nomax, flash_nomax_plain, flash_sdpa, flash_sdpa_plain, sdpa,
 )
 from anyedit_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
 from anyedit_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
@@ -351,6 +351,49 @@ def check_flash_attention(bh: int, lq: int, lkv: int, d: int, device,
                         PEAK_BF16 if dtype == torch.bfloat16 else PEAK_TF32,
                         (2 * q.numel() + 2 * bh * kv_len * d) * q.element_size(),
                         exps=bh * lq * kv_len))
+    return res
+
+
+def check_flash_sdpa(b: int, h: int, l: int, device, seed: int = 3, iters: int = 10) -> dict:
+    """K6 vs its plain version and vs `sdpa` (the route it replaces in Flux)
+    on N(0, 1) bf16 q, k, v of (b, h, l, 128), each launch followed by a
+    synchronise: `max_abs_err`, `mean_abs_err`, `bf16_ulps` and `rel_l2`
+    against the plain version, `max_abs_sdpa` and `rel_l2_sdpa` against
+    `sdpa`, and `strided_equal`: v handed as Flux's single block has it (a
+    permuted (B, L, H, D) view) gives the same bits. `launches`: K6's over
+    those two calls. Times: `kernel_device_ms` is K6 alone (the kernels
+    named `flash_sdpa_kernel`), `device_ms` the call's device time, `ms`
+    the call with the wrapper's host work, `plain_ms` the plain version,
+    `sdpa_ms` the plain `sdpa`, and the library call
+    `F.scaled_dot_product_attention` on the same bf16 tensors. The bound is
+    K1's (`k1_bound_s` in the benchmark's roofline): QK^T and P.V on the
+    bf16 tensor cores, one exp a logit, q, k, v read and o written once."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, l, 128, generator=g, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    n0 = flash_sdpa.launches
+    out = flash_sdpa(q, k, v)
+    torch.cuda.synchronize()
+    strided = flash_sdpa(q, k, v.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    res = {"launches": flash_sdpa.launches - n0, "strided_equal": bool(torch.equal(out, strided))}
+    ref = flash_sdpa_plain(q, k, v)
+    res.update(_errors(out, ref))
+    res["bf16_ulps"] = _bf16_ulps(out, ref)
+    res["rel_l2"] = float((out.float() - ref.float()).norm() / ref.float().norm())
+    base = sdpa(q, k, v).float()
+    res["max_abs_sdpa"] = float((out.float() - base).abs().max())
+    res["rel_l2_sdpa"] = float((out.float() - base).norm() / base.norm())
+    del ref, base, strided
+    _timings(res, lambda: flash_sdpa(q, k, v), lambda: flash_sdpa_plain(q, k, v),
+             lambda: F.scaled_dot_product_attention(q, k, v), iters)
+    res["library"] = "F.scaled_dot_product_attention on the same bf16 tensors"
+    res["kernel_device_ms"] = named_device_ms(lambda: flash_sdpa(q, k, v),
+                                              "flash_sdpa_kernel", iters)
+    res["sdpa_ms"] = time_ms(lambda: sdpa(q, k, v), iters)
+    flops = 4 * b * h * l * l * 128
+    res["tflops"] = flops / res["kernel_device_ms"] * 1e-9 if res["kernel_device_ms"] else None
+    res.update(roofline(flops, PEAK_BF16, 4 * q.numel() * q.element_size(), exps=b * h * l * l))
     return res
 
 

@@ -27,7 +27,12 @@ Phases, each printing its own line with the seconds it took:
      UNet's levels 0 and 1, at 60 % or more of its bytes bound. Each line
      also carries the kernel's bound (roofline, with the exp term) and the
      time of the one PyTorch call that computes the same function, where
-     there is one;
+     there is one. Then, as phase `k6`, K6 (Flux's joint attention,
+     `flash_sdpa`) at K6_SHAPES against its plain version and against
+     `sdpa`, a synchronise after each launch, v also as Flux's single
+     block hands it (a permuted view: the same bits), its device time
+     beside its bound (K1's: `k1_bound_s`), the plain version's, `sdpa`'s
+     and the library's;
   4. int8: the W8A8 int32 contraction (int8 im2col + torch._int_mm) equals
      a float64 contraction bit for bit, for a full-width conv and dense; the
      W8A8 scales and codes of tensors full of x / s = 63.5 ties equal the
@@ -179,10 +184,15 @@ own (the production `ZooConfig`, freed after):
      512 x 512 bool array;
  19. flux: `install(tb, "flux_pair")` (FLUX_SCHNELL, T5-XXL, CLIP-L, the
      Flux VAE; the modulations drawn live so that the captions reach the
-     image), one textual_change record the same way (K1 0), then the three
+     image), one textual_change record the same way (K1 0; the Flux graph
+     captured once, no block calling `sdpa`), the record again under the
+     profiler: 456 `flash_sdpa_kernel` events on the card, 57 for each of
+     its 8 Flux calls (`k6_record`; the K6 row at the record's length
+     carries them as `launches_textual_change_record`), then the three
      types in one chunk (`grounding_batch=3`), every record a success and
-     K1 0; one Flux call at batch 1 beside `flux_bound_ms`, peak GiB; the
-     zoo freed, then a W8A8 Flux (`quant_diffusion`) built alone with the
+     K1 0; one Flux call at batch 1 beside `flux_bound_ms` (its eager call
+     launches K6 exactly 57 times, one a block, and no block calls `sdpa`),
+     peak GiB; the zoo freed, then a W8A8 Flux (`quant_diffusion`) built alone with the
      same modulations against the bf16 call's output (cosine > 0.95), its
      build's peak GiB. K2 is then held at every (shape, SiLU) these paths
      launched it (`synth_k2_rows`: the UNet at batch 4, the SD VAE decode
@@ -399,6 +409,14 @@ REQUESTS = [((512, 512), "make the sky a deep orange"),
 K3_SHAPES = [(24, 4096, 4096, 40), (24, 1024, 1024, 80), (24, 256, 256, 160),
              (24, 64, 64, 160), (24, 4096, 77, 40), (24, 1024, 77, 80),
              (24, 256, 77, 160), (24, 64, 77, 160)]
+# K6 at Flux-schnell's joint attention (24 heads, D 128): 1,024 image + 256
+# text tokens (the benchmark's T5 length), + 77 (the zoo's default, a ragged
+# last key tile), and at batch 2
+K6_SHAPES = [(1, 24, 1280), (1, 24, 1101), (2, 24, 1280)]
+# K6 against its plain version: fp32 sums in another order and ex2.approx
+# move a p or an output across a bf16 rounding (max-abs, relative L2); and
+# against sdpa, which rounds the normalised p to bf16 (relative L2)
+K6_BOUNDS, K6_SDPA_REL_L2 = (8e-3, 1e-3), 1e-2
 # K4 against fp32 sdpa: the JAX package's bound is 0.03 at (2, 1024, 128) in
 # fp32 (tests/test_quant.py:207). At 4096 keys the /127 probability grid
 # errs more: the JAX kernel itself measures 0.0356 there on the CPU (its
@@ -785,6 +803,28 @@ def check_kernels(dev):
                 f"K4 {shape} agrees with its plain version")
         require(r["rel_l2_sdpa"] < bound, f"K4 {shape} within {bound} of fp32 sdpa")
     return k1, k2, k3, k4
+
+
+def check_k6(dev) -> list:
+    """K6 at K6_SHAPES (`kernel_check.check_flash_sdpa`), one line each."""
+    from anyedit_tpu_torch.ops import kernel_check as kc
+
+    rows = []
+    for shape in K6_SHAPES:
+        r = kc.check_flash_sdpa(*shape, dev)
+        alone = ("not measured" if r["kernel_device_ms"] is None
+                 else f"{r['kernel_device_ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+                      f"{100 * r['bound_ms'] / r['kernel_device_ms']:.1f} % of the bound)")
+        print(f"K6 flash_sdpa {shape}: max {r['max_abs_err']:.3e} rel-L2 {r['rel_l2']:.2e}, "
+              f"to sdpa max {r['max_abs_sdpa']:.3e} rel-L2 {r['rel_l2_sdpa']:.2e} | kernel "
+              f"{alone}, with the wrapper {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {r['sdpa_ms']:.4f} ms{yardsticks(r)}", flush=True)
+        require(r["finite"] and r["launches"] == 2 and r["strided_equal"]
+                and r["max_abs_err"] <= K6_BOUNDS[0] and r["rel_l2"] <= K6_BOUNDS[1]
+                and r["rel_l2_sdpa"] <= K6_SDPA_REL_L2,
+                f"K6 {shape} agrees with its plain version and with sdpa")
+        rows.append((str(shape), r))
+    return rows
 
 
 def check_int8(dev):
@@ -1602,6 +1642,17 @@ def gates_open():
         ex_mod.pre_filter_decision, ex_mod.post_filter_decision = saved
 
 
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """`obj.<name>` set to `value` inside the block."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
 def ground_as_real_weights(tb, device) -> set:
     """Wrap `tb.ground` and its `.batch` as the JAX factory bench
     (`tools/bench_factory.py`) does at production thresholds, where the
@@ -2363,25 +2414,72 @@ def flux_bound_ms(m, batch: int, n_txt: int, n_img: int) -> tuple[float, str, fl
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop / 1e12
 
 
+def k6_record(dev, tb, size):
+    """The textual_change record (`synth_record`) twice. First as it runs:
+    the Flux graph is captured once, and the blocks, which the capture runs
+    in Python, never call `sdpa`. Then again under `torch.profiler`
+    recording the device's events only, as the benchmark's traced run: K6
+    counted as `flash_sdpa_kernel` events on the card, where the graph's
+    replays run it and no Python wrapper counts; 57 (`Flux.k6_launches`) a
+    `flux` span. Returns (the first run's `synth_record` tuple, {K6 events,
+    Flux calls, joint tokens})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from anyedit_tpu_torch.core import trace
+    from anyedit_tpu_torch.models import flux as flux_mod
+    from anyedit_tpu_torch.ops.attention import sdpa
+    from anyedit_tpu_torch.ops.cuda_graph import Graphed
+
+    sdpa_calls, captures = [], []
+    capture = Graphed._capture
+    with patched(flux_mod, "sdpa", lambda *a, **k: sdpa_calls.append(1) or sdpa(*a, **k)), \
+            patched(Graphed, "_capture", lambda g, a: captures.append(1) or capture(g, a)):
+        out = synth_record(dev, tb, "textual_change", size)
+    require(len(captures) == 1 and not sdpa_calls,
+            f"the Flux graph captured once ({len(captures)}) with no sdpa call from the "
+            f"blocks ({len(sdpa_calls)})")
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        synth_record(dev, tb, "textual_change", size)
+        torch.cuda.synchronize()
+    spans = [r for r in trace.records() if r.name == "flux"]
+    trace.clear()
+    events = sum(e.device_type() == DeviceType.CUDA and "flash_sdpa_kernel" in e.name()
+                 for e in prof.profiler.kineto_results.events())
+    per_call, tokens = {r.attrs["k6"] for r in spans}, {r.attrs["tokens"] for r in spans}
+    require(len(spans) == SYNTH_STEPS["textual_change"] and per_call == {57}
+            and len(tokens) == 1 and events == 57 * len(spans),
+            f"the textual_change record runs K6 in every Flux block: {events} K6 kernels on "
+            f"the card for {len(spans)} Flux calls (K6 a call {per_call}, want 57)")
+    print(f"textual_change record under the profiler: {events} K6 kernels on the card, 57 x "
+          f"{len(spans)} Flux calls at {tokens} joint tokens; sdpa none", flush=True)
+    return out, {"events": events, "calls": len(spans), "tokens": min(tokens, default=0)}
+
+
 def flux_phase(dev, szoo, tb):
     """One textual_change record through `FactoryExecutor` on the
     full-width Flux slot (FLUX_SCHNELL, T5-XXL, CLIP-L, the Flux VAE; its
     modulations drawn live, `live_modulations_` seed 9, since at the seeded
-    init, as in the JAX package, the captions do not reach the image), then
-    the three synthesized types in one chunk (`grounding_batch=3`): every
-    record a success, K1 0. Then one Flux call at batch 1 (`ZooConfig.
-    flux_t5_len` text tokens, 77 by default, + 1,024 image tokens; CUDA
-    events) beside `flux_bound_ms`; the W8A8 check keeps
-    its output. Returns ((launches, tally), numbers, args, bf16 velocity)."""
+    init, as in the JAX package, the captions do not reach the image), K6
+    counted on the card (`k6_record`), then the three synthesized types in
+    one chunk (`grounding_batch=3`): every record a success, K1 0. Then
+    one eager Flux call at batch 1 (`ZooConfig.flux_t5_len` text tokens, 77
+    by default, + 1,024 image tokens; CUDA events) beside `flux_bound_ms`;
+    the W8A8 check keeps its output. Returns ((launches, tally), numbers,
+    args, bf16 velocity)."""
     import torch
     from anyedit_tpu_torch.core.schema import InstructionRecord
+    from anyedit_tpu_torch.models import flux as flux_mod
+    from anyedit_tpu_torch.ops.attention import flash_sdpa, sdpa
     from anyedit_tpu_torch.ops.kernel_check import time_ms
 
     c = szoo.cfg
     size = c.canvas.edit_size
     flux = live_modulations_(szoo._flux(), 9)
-    line, sec, launches, tally, peak = synth_record(dev, tb, "textual_change", size)
-    nums = {"record_s": sec, "peak_gib": peak}
+    (line, sec, launches, tally, peak), k6 = k6_record(dev, tb, size)
+    nums = {"record_s": sec, "peak_gib": peak, "k6_record": k6["events"],
+            "k6_record_tokens": k6["tokens"]}
 
     recs = [InstructionRecord.from_json(dict(SYNTH_RECORDS[et], edit_type=et, id=et))
             for et in SYNTH_RECORDS]
@@ -2404,14 +2502,21 @@ def flux_phase(dev, szoo, tb):
         ctx = szoo._t5(c.flux_t5_len)(text).to(torch.bfloat16)
         _, pooled, _ = szoo._text_raw("clip_text", c.text)(text)
         args = (x, t, ctx, pooled)
-        out = flux(*args).float()
+        k6_before, sdpa_calls = flash_sdpa.launches, []
+        with patched(flux_mod, "sdpa", lambda *a, **k: sdpa_calls.append(1) or sdpa(*a, **k)):
+            out = flux(*args).float()
+        k6_launches = flash_sdpa.launches - k6_before
         flux_ms = time_ms(lambda: flux(*args), iters=5)
+    require(k6_launches == flux.k6_launches == 57 and not sdpa_calls,
+            f"every Flux block takes K6 ({k6_launches} K6 launches a call, "
+            f"{len(sdpa_calls)} sdpa calls)")
     bound_ms, bound_by, tflop = flux_bound_ms(flux, 1, ctx.shape[1], (hw // c.flux.patch) ** 2)
     require(out.isfinite().all() and out.shape == x.shape, "the Flux velocity is finite")
-    nums.update(flux_ms=flux_ms, bound_ms=bound_ms, bound_by=bound_by,
+    nums.update(flux_ms=flux_ms, bound_ms=bound_ms, bound_by=bound_by, k6_launches=k6_launches,
+                k6_tokens=ctx.shape[1] + (hw // c.flux.patch) ** 2,
                 tflop=tflop, resident_gib=torch.cuda.memory_allocated() / 2 ** 30)
     print(f"Flux call at batch 1 ({ctx.shape[1]} text + {(hw // c.flux.patch) ** 2} image "
-          f"tokens): {flux_ms:.3f} ms against a bound "
+          f"tokens; K6 {k6_launches} launches, sdpa none): {flux_ms:.3f} ms against a bound "
           f"of {bound_ms:.3f} ms ({bound_by}: {tflop:.3f} TFLOP); textual_change record "
           f"{sec:.3f} s, peak {peak:.2f} GiB", flush=True)
     return (launches, tally), nums, args, out
@@ -4983,6 +5088,9 @@ def main() -> int:
         slice_rows = check_chunk_kernels(dev)
         k5_rows = check_k5(dev)
 
+    with phase("k6"):
+        k6_rows = check_k6(dev)
+
     with phase("int8"):
         check_int8(dev)
 
@@ -5305,6 +5413,17 @@ def main() -> int:
         for run in ("chunk", "bucket"):
             row[f"launches_{run}"] = ch["launches"][run]["k5"].get(key, 0)
             row[f"launches_{run}_scorers"] = ch["launches"][run]["layer_norm_scorers"]
+        kernels.append(row)
+    # K6 at its shapes; the eager Flux call's launches and the textual_change
+    # record's (counted on the card) on the row of their length
+    for tag, r in k6_rows:
+        row = entry("flash_sdpa", "anyedit_tpu_torch/csrc/flash_sdpa.cu",
+                    "none: Flux's attention is sdpa_xla (XLA) in anyedit_tpu/models/flux.py",
+                    fx["k6_launches"] if tag == str((1, 24, fx["k6_tokens"])) else 0,
+                    [(tag, r)])
+        row["path"] = "one Flux-schnell call at batch 1 (flux phase)"
+        row["launches_textual_change_record"] = (
+            fx["k6_record"] if tag == str((1, 24, fx["k6_record_tokens"])) else 0)
         kernels.append(row)
     # K1 runs at no shape on the geometry, UltraEdit and caption-pair paths:
     # 0 launches

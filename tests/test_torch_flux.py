@@ -31,9 +31,11 @@ from anyedit_tpu.diffusion.ultraedit import flux_sample as jax_flux_sample
 from anyedit_tpu.models import flux as jflux
 from anyedit_tpu.ops.quant import quantize_params
 from anyedit_tpu.weights.convert import convert_flux
+from anyedit_tpu_torch.core import trace
 from anyedit_tpu_torch.diffusion import flux_pair, flux_sample
 from anyedit_tpu_torch.models import flux
 from anyedit_tpu_torch.ops import quant as tq
+from anyedit_tpu_torch.ops.cuda_graph import Graphed
 from anyedit_tpu_torch.weights import bridge
 from anyedit_tpu_torch.weights.init import seeded_init_
 from test_torch_bridge import F32, TF32, random_flax_params
@@ -205,6 +207,103 @@ def test_flux_schnell_param_count():
     q = flux.Flux(dataclasses.replace(flux.FLUX_SCHNELL, quant=True), device="meta")
     n_int8 = sum(b.numel() for b in q.buffers() if b.dtype == torch.int8)
     assert 8.5e9 < n_int8 < 8.7e9 and n_int8 + by_dtype[torch.float32] < n_jax
+
+
+# ---- the attention route (K6) ---------------------------------------------------
+
+@pytest.mark.parametrize("device_type,dtype,head_dim,k6", [
+    ("cuda", torch.bfloat16, 128, True), ("cpu", torch.bfloat16, 128, False),
+    ("cuda", torch.float32, 128, False), ("cuda", torch.bfloat16, 16, False),
+    ("cpu", torch.float32, 16, False)])
+def test_flux_attention_route(device_type, dtype, head_dim, k6):
+    """Flux's joint attention takes K6 on CUDA bf16 at head dim 128 (the
+    published width) and `sdpa` on the CPU, in fp32 and at TINY_FLUX's
+    head dim 16: a function of those three alone."""
+    assert flux.takes_k6(device_type, dtype, head_dim) is k6
+
+
+def _count_calls(monkeypatch, names):
+    """Wraps `flux.<name>` for each name so that its calls are counted."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*a, _name=name, _real=getattr(flux, name), **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(flux, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("route_k6", [False, True])
+def test_flux_blocks_take_the_routed_attention(monkeypatch, route_k6):
+    """Each double and single block calls the attention its route names,
+    once a call: `sdpa` on the CPU, `flash_sdpa` where the route is forced
+    to K6 (its plain version on CPU tensors), with the same velocity in
+    fp32 (1e-4, the file's velocity tolerance)."""
+    m = _port_flux(flux_params(JCFG, 72), _port_cfg(JCFG))
+    x, t, ctx, pooled = (T(a) for a in _inputs(JCFG, batch=1, seed=73))
+    with torch.no_grad():
+        ref = m(x, t, ctx, pooled)
+    calls = _count_calls(monkeypatch, ("sdpa", "flash_sdpa"))
+    if route_k6:
+        monkeypatch.setattr(flux, "takes_k6", lambda *a: True)
+    with torch.no_grad():
+        got = m(x, t, ctx, pooled)
+    n = JCFG.double_depth + JCFG.single_depth
+    assert calls == ({"sdpa": 0, "flash_sdpa": n} if route_k6 else
+                     {"sdpa": n, "flash_sdpa": 0})
+    _close(got, ref.numpy(), 1e-4)
+
+
+def _traced_k6(m, steps=2):
+    """The `k6` attribute of each `flux` span of a traced `flux_sample`."""
+    _, _, ctx, pooled = _inputs(JCFG, batch=1, seed=75)
+    noise = torch.from_numpy(np.random.default_rng(76).standard_normal((1, 8, 8, 4))
+                             .astype(np.float32))
+    trace.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad():
+            flux_sample(m, noise, T(ctx), T(pooled), num_steps=steps)
+    got = [r.attrs["k6"] for r in trace.records() if r.name == "flux"]
+    trace.clear()
+    return got
+
+
+def test_flux_span_counts_k6_launches(monkeypatch):
+    """The `flux` span's `k6`: the K6 launches of one call, as the model
+    reports them (`Flux.k6_launches`, the route its config takes on its
+    parameters' device). 57 = 19 + 38 for FLUX_SCHNELL on the card, its
+    W8A8 build too (the attention stays bf16); 0 on the CPU, in fp32 and
+    for TINY_FLUX. A traced `flux_sample` on the CPU records 0 a call, and
+    one a block where the route is forced to K6, as many as the blocks call
+    `flash_sdpa`."""
+    s = flux.FLUX_SCHNELL
+    assert flux.k6_per_call(s, "cuda") == 57 == s.double_depth + s.single_depth
+    assert flux.k6_per_call(dataclasses.replace(s, quant=True), torch.device("cuda")) == 57
+    assert flux.k6_per_call(s, "cpu") == 0
+    assert flux.k6_per_call(dataclasses.replace(s, dtype=torch.float32), "cuda") == 0
+    assert flux.k6_per_call(flux.TINY_FLUX, "cuda") == 0
+    m = _port_flux(flux_params(JCFG, 74), _port_cfg(JCFG))
+    assert m.k6_launches == 0 and flux.Flux(s, device="meta").k6_launches == 0
+    assert _traced_k6(m) == [0, 0]
+    calls = _count_calls(monkeypatch, ("flash_sdpa",))
+    monkeypatch.setattr(flux, "takes_k6", lambda *a: True)
+    n = JCFG.double_depth + JCFG.single_depth
+    assert m.k6_launches == n
+    assert _traced_k6(m) == [n, n] and calls["flash_sdpa"] == 2 * n
+
+
+def test_flux_span_reads_k6_through_the_graph_wrapper(monkeypatch):
+    """`flux_sample` reads `k6_launches` through `Graphed`, as the zoo's
+    sampler calls it, and records 0 for a model that does not report it."""
+    m = _port_flux(flux_params(JCFG, 77), _port_cfg(JCFG))
+    monkeypatch.setattr(flux, "takes_k6", lambda *a: True)
+    n = JCFG.double_depth + JCFG.single_depth
+    assert _traced_k6(Graphed(m)) == [n, n]
+
+    def plain(*a):
+        return m(*a)
+    plain.cfg = m.cfg
+    assert _traced_k6(plain) == [0, 0]
 
 
 # ---- W8A8 --------------------------------------------------------------------

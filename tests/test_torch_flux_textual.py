@@ -249,7 +249,7 @@ def test_traced_pair_emits_the_flux_spans():
     flux = [r for r in recs if r.name == "flux"]
     tokens = T5_LEN + (CFG["canvas"]["edit_size"] // CFG["canvas"]["latent_down"]
                        // TZ.flux.patch) ** 2
-    assert [r.attrs for r in flux] == [{"rows": 1, "tokens": tokens, "step": i}
+    assert [r.attrs for r in flux] == [{"rows": 1, "tokens": tokens, "step": i, "k6": 0}
                                        for _ in CAPTIONS for i in range(4)]
     assert all(inside(r) and r.layer == "editor" for r in recs if r is not top[0])
 
@@ -344,8 +344,41 @@ def test_benchmark_lists_the_cell_and_its_metrics():
         "flux_ms_per_call.textual", "t5_ms_per_pair.textual", "edit_dev_ms_per_pair.textual",
         "edit_idle_ms_per_pair.textual", "scorer_dev_ms_per_pair.textual",
         "k2_roofline.textual", "mfu_pct.textual", "device_idle_pct.textual",
-        "host_syncs_per_pair.textual"}
+        "host_syncs_per_pair.textual", "k6_roofline.textual"}
     assert set(cell.limits) <= set(synth_checks.NAMES) and cell.limits
+
+
+def test_k6_roofline_reads_the_spans_launches(monkeypatch):
+    """`k6_roofline.textual` on hand-built readings: each `flux` span's `k6`
+    launches at K1's bound of its (24 rows, tokens, 128) attention over the
+    device time of the kernels named `flash_sdpa_kernel`; None where no span
+    records a launch (a program before K6), and where the trace holds
+    another count of such kernels than the spans record."""
+    from portbench.harness import program_trace, roofline
+    metric = {m.NAME: m for m in registry.metrics_for(BENCH, CELL)}["k6_roofline.textual"]
+    monkeypatch.setattr(roofline, "max_sm_clock_hz", lambda: 1.98e9)
+
+    class Trace:
+        def __init__(self, n, each_s):
+            self.n, self.each_s = n, each_s
+
+        def named(self, sub):
+            return [self.each_s] * self.n if sub == "flash_sdpa_kernel" else []
+
+    def spans(*attrs):
+        return [trace.Record(i, None, "flux", "editor", None, 0, 0, 1, a)
+                for i, a in enumerate(attrs)]
+    bound = roofline.k1_bound_s(24, 1280, 128)
+    cases = [(spans({"rows": 1, "tokens": 1280, "step": 0, "k6": 57}) * 2, Trace(114, 4e-5),
+              100 * bound / 4e-5),
+             (spans({"rows": 1, "tokens": 1280, "step": 0, "k6": 57}), Trace(56, 4e-5), None),
+             (spans({"rows": 1, "tokens": 1280, "step": 0}), Trace(0, 4e-5), None),
+             (spans({"rows": 1, "tokens": 1280, "step": 0, "k6": 0}), Trace(0, 4e-5), None),
+             (None, Trace(0, 4e-5), None)]
+    for recs, tr, want in cases:
+        monkeypatch.setattr(program_trace, "records", lambda r, _recs=recs: _recs)
+        got = metric.read({"trace": tr})
+        assert got == pytest.approx(want) if want is not None else got is None
 
 
 def test_program_span_metrics_are_silent_without_spans():

@@ -1,6 +1,6 @@
 """The port's hand kernels and their wrappers, without JAX.
 
-Tests marked `cuda` hold K1-K5 against their plain versions, and the W8A8
+Tests marked `cuda` hold K1-K6 against their plain versions, and the W8A8
 int8 contraction against float64, on the card, and skip without one. This file imports no JAX, so it also runs on a
 machine with the card and no JAX:
 
@@ -80,7 +80,7 @@ def test_flash_nomax_clamp_saturates_not_overflows():
 
 
 @pytest.mark.parametrize("op", ["flash_nomax", "group_norm", "flash_attention",
-                                "flash_int8", "int8_matmul", "layer_norm"])
+                                "flash_int8", "int8_matmul", "layer_norm", "flash_sdpa"])
 def test_wrappers_raise_off_cpu_and_cuda(op):
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel or raises, never falls back."""
@@ -394,6 +394,49 @@ def test_flash_nomax_kernel_matches_plain(cuda, bh, l, d):
     assert tattn.flash_nomax.launches == before + 1
     err = (out.float() - tattn.flash_nomax_plain(q, k, v, 1.0 / math.sqrt(d)).float()).abs()
     assert float(err.mean()) <= 2e-3 and float(err.max()) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,l", [(1, 24, 1280), (1, 24, 1101), (2, 24, 1280), (1, 2, 77)])
+def test_flash_sdpa_kernel_matches_plain(cuda, b, h, l):
+    """K6 vs its plain version on the same bf16 inputs at Flux's 24 heads
+    and D 128 (1,280 and the ragged 1,101 joint tokens, batch 2, a sequence
+    shorter than a key tile): max-abs <= 8e-3 and relative L2 <= 1e-3 (fp32
+    sums in another order and `ex2.approx` move a p or an output across a
+    bf16 rounding boundary). v as Flux's single block hands it, a permuted
+    (B, L, H, D) view, gives the same bits; the result is a (B, H, L, D)
+    view of a (B, L, H, D) buffer."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(b, h, l, 128, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    before = tattn.flash_sdpa.launches
+    out = tattn.flash_sdpa(q, k, v)
+    torch.cuda.synchronize()
+    strided = tattn.flash_sdpa(q, k, v.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    assert tattn.flash_sdpa.launches == before + 2
+    assert out.shape == q.shape and out.permute(0, 2, 1, 3).is_contiguous()
+    assert torch.equal(out, strided)
+    ref = tattn.flash_sdpa_plain(q, k, v).float()
+    err = out.float() - ref
+    assert float(err.abs().max()) <= 8e-3 and float(err.norm() / ref.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_sdpa_kernel_refuses_what_it_does_not_take(cuda):
+    """K6 takes bf16 at D 128 with strides a multiple of 8: fp32, another D
+    and an odd row stride raise, and nothing launches."""
+    x = torch.zeros(1, 2, 64, 128, device=cuda, dtype=torch.bfloat16)
+    before = tattn.flash_sdpa.launches
+    with pytest.raises(TypeError, match="bf16"):
+        tattn.flash_sdpa(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError, match="shape"):
+        y = x[..., :64]
+        tattn.flash_sdpa(y, y, y)
+    odd = torch.zeros(1, 2, 64, 132, device=cuda, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="stride"):
+        tattn.flash_sdpa(odd, x, x)
+    assert tattn.flash_sdpa.launches == before
 
 
 @pytest.mark.cuda

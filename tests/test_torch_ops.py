@@ -96,6 +96,55 @@ def test_flash_attention_kv_len_masks_key_padding():
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=2e-5)
 
 
+# K6's lengths: Flux-schnell's joint sequence at the benchmark's T5 length
+# (256 + 1,024 tokens), at the zoo's default T5 length (77 + 1,024: a ragged
+# last key block), and one shorter than a block
+K6_LENGTHS = [1280, 1101, 77]
+
+
+def _k6_inputs(l, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((1, 2, l, 128)).astype(np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("l", K6_LENGTHS)
+def test_flash_sdpa_plain_matches_sdpa_fp32(l):
+    """K6's plain version (`flash_sdpa` on CPU tensors) vs `sdpa` in fp32:
+    the online softmax over 128-key blocks is the same function, within
+    1e-5."""
+    q, k, v = _k6_inputs(l, 20)
+    out = tattn.flash_sdpa(q, k, v)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    np.testing.assert_allclose(_np(out), _np(tattn.sdpa(q, k, v)), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("l", K6_LENGTHS)
+def test_flash_sdpa_plain_matches_sdpa_bf16(l):
+    """The same in bf16. Both round the probabilities to bf16 for P.V, at
+    different points: `sdpa` the normalised p, K6 the unnormalised p (at
+    most 1) before the row sum is divided out. Each p carries at most 2^-9
+    relative rounding on either side, so the outputs differ by at most
+    2^-8 max|v|, plus each output's own bf16 rounding (2^-9 relative)."""
+    q, k, v = _k6_inputs(l, 21, torch.bfloat16)
+    out = tattn.flash_sdpa_plain(q, k, v)
+    ref = tattn.sdpa(q, k, v)
+    assert out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs()
+    tol = 2 ** -8 * float(v.float().abs().max()) + 2 ** -8 * float(ref.float().abs().max())
+    assert float(err.max()) <= tol, (float(err.max()), tol)
+
+
+@pytest.mark.parametrize("l", K6_LENGTHS)
+def test_flash_sdpa_plain_matches_sdpa_xla(l):
+    """K6's plain version vs the JAX package's `sdpa_xla`, which Flux runs
+    there, in fp32: 1e-5."""
+    q, k, v = _k6_inputs(l, 22)
+    ref = sdpa_xla(*(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    np.testing.assert_allclose(_np(tattn.flash_sdpa_plain(q, k, v)), _np(ref), atol=1e-5,
+                               rtol=0)
+
+
 @pytest.mark.parametrize("block_k", [64, 512])
 @pytest.mark.parametrize("l,d,kv_len", [(512, 40, None), (256, 80, 200), (1000, 40, None)])
 def test_flash_int8_plain_matches_jax_kernel(l, d, kv_len, block_k):
